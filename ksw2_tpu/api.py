@@ -13,9 +13,8 @@ arrays.
     >>> ez.score, ez.cigar_string()
     >>> ezs = aln.extend_batch(pairs)                   # many pairs
 
-Two-piece costs (``q2``/``e2``) switch the engines to extd2 semantics;
-``splice=True`` with ``q2``/``noncan`` selects the exts2 family.  Every
-result is an :class:`~ksw2_tpu.core.result.ExtzResult` with the exact
+Two-piece costs (``q2``/``e2``) switch the engines to extd2 semantics.
+Every result is an :class:`~ksw2_tpu.core.result.ExtzResult` with the exact
 ``ksw_extz_t`` field contract (max/mqe/mte/zdropped/reach_end/cigar).
 """
 from __future__ import annotations
@@ -38,24 +37,22 @@ def _enc(s: Seq) -> np.ndarray:
 
 
 class Aligner:
-    """Pairwise extension/global aligner with fixed scoring parameters.
+    """Pairwise extension aligner with fixed scoring parameters.
 
     Parameters mirror the reference CLI and kernel signatures: match
     ``a``, mismatch ``b`` (positive), gap open/extend ``q``/``e``,
     optional two-piece ``q2``/``e2`` (extd2), band ``w``, Z-drop
     ``zdrop``, ``end_bonus``, and ``flag`` (any ``Flag`` bits: RIGHT,
-    SCORE_ONLY, APPROX_MAX|APPROX_DROP, EXTZ_ONLY, EQX, ...).  A custom
-    ``mat`` (m*m int8) overrides ``a``/``b`` and implies GENERIC_SC
-    unless it is a simple matrix.
+    SCORE_ONLY, APPROX_MAX|APPROX_DROP, EXTZ_ONLY, REV_CIGAR, EQX, ...).
+    A custom ``mat`` (m*m int8) overrides ``a``/``b`` and implies
+    GENERIC_SC unless it is a simple matrix.
     """
 
     def __init__(self, a: int = 2, b: int = 4, q: int = 4, e: int = 2,
                  q2: Optional[int] = None, e2: Optional[int] = None,
                  w: int = -1, zdrop: int = -1, end_bonus: int = 0,
                  flag: Flag | int = Flag.NONE, m: int = 5,
-                 mat: Optional[np.ndarray] = None,
-                 splice: bool = False, noncan: int = 0,
-                 junc_bonus: int = 0):
+                 mat: Optional[np.ndarray] = None):
         self.m = int(m)
         self.flag = Flag(int(flag))
         if mat is not None:
@@ -69,12 +66,7 @@ class Aligner:
         self.e2 = None if e2 is None else int(e2)
         self.w, self.zdrop = int(w), int(zdrop)
         self.end_bonus = int(end_bonus)
-        self.splice = bool(splice)
-        self.noncan = int(noncan)
-        self.junc_bonus = int(junc_bonus)
-        if self.splice and self.q2 is None:
-            raise ValueError("splice mode needs q2 (intron open cost)")
-        if (self.q2 is None) != (self.e2 is None) and not self.splice:
+        if (self.q2 is None) != (self.e2 is None):
             raise ValueError("two-piece costs need both q2 and e2")
 
     @staticmethod
@@ -87,193 +79,42 @@ class Aligner:
         want[:, m - 1] = 0
         return bool((sq == want).all())
 
-    # -- single pair ------------------------------------------------------
+    def _jobs(self, pairs, w):
+        from .batch.scheduler import AlignJob
 
-    def extend(self, query: Seq, target: Seq,
-               junc: Optional[np.ndarray] = None) -> ExtzResult:
+        return [AlignJob(query=_enc(qy), target=_enc(tg),
+                         w=int(w[i]) if w is not None else self.w)
+                for i, (qy, tg) in enumerate(pairs)]
+
+    def extend(self, query: Seq, target: Seq) -> ExtzResult:
         """Extension alignment of one pair (the ksw_ext* call family)."""
-        qs, ts = _enc(query), _enc(target)
-        if self.splice:
-            from .ops.exts import exts2_device
-            ez, _ = exts2_device(qs, ts, self.m, self.mat, self.q, self.e,
-                                 self.q2, self.noncan, zdrop=self.zdrop,
-                                 junc_bonus=self.junc_bonus,
-                                 flag=self.flag, junc=junc)
-        elif self.q2 is not None:
-            from .ops.extd import extd2_device
-            ez, _ = extd2_device(qs, ts, self.m, self.mat, self.q, self.e,
-                                 self.q2, self.e2, w=self.w,
-                                 zdrop=self.zdrop,
-                                 end_bonus=self.end_bonus, flag=self.flag)
-        else:
-            from .ops.extz import extz2_device
-            ez, _ = extz2_device(qs, ts, self.m, self.mat, self.q, self.e,
-                                 w=self.w, zdrop=self.zdrop,
-                                 end_bonus=self.end_bonus, flag=self.flag)
-        return ez
-
-    def global_align(self, query: Seq, target: Seq) -> ExtzResult:
-        """Global (NW) alignment of one pair (ksw_gg2_sse semantics).
-
-        The reference ``ksw_gg*`` return a bare score with no ``ksw_extz_t``
-        (ksw2.h:85-92), so there is no upstream contract for the max/mqe/mte
-        fields here.  For API uniformity they are filled from the one cell a
-        global alignment determines — the corner ``(tlen-1, qlen-1)``, which
-        is simultaneously the alignment end, the query-end cell, and the
-        target-end cell.  ``reach_end`` is set: a global alignment reaches
-        the query end by definition.
-        """
-        from .ops.gg2 import gg2_device
-
-        qs, ts = _enc(query), _enc(target)
-        score, cig, _ = gg2_device(qs, ts, self.m, self.mat, self.q,
-                                   self.e, w=self.w)
-        qlen, tlen = len(qs), len(ts)
-        ez = ExtzResult()
-        ez.reset()
-        ez.score = score
-        ez.max = score
-        ez.max_t, ez.max_q = tlen - 1, qlen - 1
-        ez.mqe, ez.mqe_t = score, tlen - 1
-        ez.mte, ez.mte_q = score, qlen - 1
-        ez.reach_end = True
-        ez.cigar = cig
-        return ez
-
-    # -- batches ----------------------------------------------------------
+        return self.extend_batch([(query, target)])[0]
 
     def extend_batch(self, pairs: Sequence[Tuple[Seq, Seq]],
                      w: Optional[Sequence[int]] = None,
-                     run_fn=None,
-                     juncs: Optional[Sequence[Optional[np.ndarray]]] = None,
-                     mesh=None,
-                     ) -> List[ExtzResult]:
+                     mesh=None) -> List[ExtzResult]:
         """Extension alignment of many pairs through the bucketing
-        scheduler (scores+CIGARs; score-only when SCORE_ONLY is set).
+        scheduler (scores and CIGARs; scores only under SCORE_ONLY).
 
-        ``w`` optionally gives per-pair bands; ``juncs`` optionally gives
-        per-pair junction annotation tracks (splice mode, same meaning as
-        ``extend(junc=...)``); ``run_fn`` plugs a mesh-sharded engine (see
-        :func:`ksw2_tpu.parallel.mesh.make_sharded_run_fn`) and is only
-        valid for one-piece SCORE_ONLY configurations — the sharded record
-        path carries extz scores, so any other cost model or output shape
-        must fail loudly rather than return wrong results.
-
-        ``mesh`` shards the batch over a ``jax.sharding.Mesh`` for
-        one-piece configurations: SCORE_ONLY routes through
-        ``make_sharded_run_fn``; CIGAR configurations run the per-shard
-        device CIGAR pipeline (``parallel.mesh.sharded_extz_align``) for
-        targets <= 1536 and the local scheduler for longer ones.
+        ``w`` optionally gives per-pair bands; ``mesh`` shards every
+        launch's batch over a ``jax.sharding.Mesh``
+        (:func:`ksw2_tpu.parallel.mesh.make_mesh`).
         """
-        from .batch.scheduler import AlignJob, align_batch, \
-            align_batch_scores, align_batch_splice
-
-        if mesh is not None:
-            if run_fn is not None:
-                raise ValueError("pass either mesh or run_fn, not both")
-            if self.splice or self.q2 is not None:
-                raise ValueError(
-                    "mesh batches support one-piece configurations only")
-        if run_fn is not None and (
-                self.splice or self.q2 is not None
-                or not (self.flag & Flag.SCORE_ONLY)):
-            raise ValueError(
-                "run_fn supports one-piece SCORE_ONLY batches only "
-                "(sharded records carry extz scores; q2/e2, splice, or "
-                "CIGAR configurations would silently lose information)")
-        if juncs is not None and not self.splice:
-            raise ValueError("juncs requires splice=True")
-
-        jobs = []
-        for i, (qy, tg) in enumerate(pairs):
-            wv = int(w[i]) if w is not None else self.w
-            jobs.append(AlignJob(query=_enc(qy), target=_enc(tg), w=wv))
-        if self.splice:
-            return align_batch_splice(
-                jobs, self.m, self.mat, self.q, self.e, self.q2,
-                self.noncan, zdrop=self.zdrop,
-                junc_bonus=self.junc_bonus, flag=self.flag, juncs=juncs)
-        if mesh is not None and not (self.flag & Flag.SCORE_ONLY):
-            return self._extend_batch_mesh_cigar(mesh, jobs)
-        if mesh is not None:
-            from .parallel.mesh import make_sharded_run_fn
-            run_fn = make_sharded_run_fn(mesh)
-        if run_fn is not None:
-            return align_batch_scores(
-                jobs, self.m, self.mat, self.q, self.e, zdrop=self.zdrop,
-                flag=self.flag, run_fn=run_fn)
-        return align_batch(
-            jobs, self.m, self.mat, self.q, self.e, q2=self.q2,
-            e2=self.e2, zdrop=self.zdrop, end_bonus=self.end_bonus,
-            flag=self.flag)
+        return self.extend_batch_async(pairs, w=w, mesh=mesh).result()
 
     def extend_batch_async(self, pairs: Sequence[Tuple[Seq, Seq]],
-                           w: Optional[Sequence[int]] = None,
-                           juncs=None):
+                           w: Optional[Sequence[int]] = None, mesh=None):
         """Submit a batch without waiting; returns a handle whose
-        ``.result()`` yields the same list :meth:`extend_batch` would.
-        Keeping several batches in flight overlaps each batch's
-        dispatch/transfer latency with the next one's device compute —
-        the production serving shape (see the suite's stream rows)."""
-        from .batch.scheduler import (AlignJob, align_batch_async,
-                                      align_batch_splice_async)
+        ``.result()`` yields the same list :meth:`extend_batch` would
+        (and ``.result_array()`` the bare score records).  Several
+        batches in flight overlap each one's host work with the device
+        work of the others."""
+        from .batch.scheduler import align_batch_async
 
-        if juncs is not None and not self.splice:
-            raise ValueError("juncs requires splice=True")
-        jobs = []
-        for i, (qy, tg) in enumerate(pairs):
-            wv = int(w[i]) if w is not None else self.w
-            jobs.append(AlignJob(query=_enc(qy), target=_enc(tg), w=wv))
-        if self.splice:
-            return align_batch_splice_async(
-                jobs, self.m, self.mat, self.q, self.e, self.q2,
-                self.noncan, zdrop=self.zdrop,
-                junc_bonus=self.junc_bonus, flag=self.flag, juncs=juncs)
         return align_batch_async(
-            jobs, self.m, self.mat, self.q, self.e, q2=self.q2,
-            e2=self.e2, zdrop=self.zdrop, end_bonus=self.end_bonus,
-            flag=self.flag)
-
-    def _extend_batch_mesh_cigar(self, mesh, jobs) -> List[ExtzResult]:
-        """One-piece CIGAR batch sharded over ``mesh`` (short targets);
-        targets past the batched CIGAR engine run the local scheduler."""
-        from .batch.scheduler import align_batch
-        from .parallel.mesh import sharded_extz_align
-
-        results: List[Optional[ExtzResult]] = [None] * len(jobs)
-        short = [i for i, j in enumerate(jobs)
-                 if 0 < len(j.target) <= 1536 and len(j.query) > 0]
-        rest = [i for i in range(len(jobs)) if i not in set(short)]
-        if short:
-            Lq = max(len(jobs[i].query) for i in short)
-            Lt = max(len(jobs[i].target) for i in short)
-            B = len(short)
-            Q = np.zeros((B, Lq), np.int32)
-            T = np.zeros((B, Lt), np.int32)
-            qlen = np.zeros(B, np.int32)
-            tlen = np.zeros(B, np.int32)
-            wv = np.zeros(B, np.int32)
-            for k, i in enumerate(short):
-                job = jobs[i]
-                Q[k, :len(job.query)] = job.query
-                T[k, :len(job.target)] = job.target
-                qlen[k] = len(job.query)
-                tlen[k] = len(job.target)
-                wv[k] = job.w if job.w >= 0 else max(len(job.query),
-                                                     len(job.target))
-            out = sharded_extz_align(
-                mesh, Q, T, qlen, tlen, self.m, self.mat, self.q, self.e,
-                w=wv, zdrop=self.zdrop, end_bonus=self.end_bonus,
-                flag=self.flag)
-            for k, i in enumerate(short):
-                results[i] = out[k]
-        if rest:
-            out = align_batch(
-                [jobs[i] for i in rest], self.m, self.mat, self.q, self.e,
-                zdrop=self.zdrop, end_bonus=self.end_bonus, flag=self.flag)
-            for k, i in enumerate(rest):
-                results[i] = out[k]
-        return results  # type: ignore[return-value]
+            self._jobs(pairs, w), self.m, self.mat, self.q, self.e,
+            q2=self.q2, e2=self.e2, zdrop=self.zdrop,
+            end_bonus=self.end_bonus, flag=self.flag, mesh=mesh)
 
 
 __all__ = ["Aligner"]

@@ -4,9 +4,11 @@ Same options, algorithm names, defaults and TSV output as the reference CLI
 (``cli.c:159-259``), so golden diffs are plain ``diff``-able.  Extensions are
 flagged explicitly:
 
-* ``--backend {spec,tpu,batch}`` selects the engine: ``spec`` (NumPy
-  reference engines, default off-TPU), ``tpu`` (Pallas wavefront kernels),
-  ``batch`` (XLA batched scorer; score-only).
+* ``--backend {spec,device}`` selects the engine: ``spec`` (the NumPy
+  reference engines, every algorithm) or ``device`` (the batched device
+  path: ``extz2_sse``, ``extd2_sse`` and ``test``; the whole input runs as
+  one batch).  The default is ``device`` when JAX finds a GPU, else
+  ``spec``.
 * exts2 CIGARs print intron ops as ``N`` (the reference CLI prints a NUL
   byte there — an out-of-bounds read of its op-name string).
 
@@ -19,14 +21,13 @@ import os
 import sys
 from typing import List, Optional
 
-import numpy as np
-
 from .core.flags import Flag
 from .core.matrix import encode_dna, simple_mat
 from .core.result import ExtzResult
 
 ALGOS = ("gg", "gg2", "gg2_sse", "extz", "extz2_sse", "extd", "extd2_sse",
          "extf2_sse", "exts2_sse", "test")
+DEVICE_ALGOS = ("extz2_sse", "extd2_sse", "test")
 
 
 def dispatch(
@@ -43,9 +44,8 @@ def dispatch(
     w: int = -1,
     zdrop: int = -1,
     flag: Flag | int = Flag.NONE,
-    backend: str = "spec",
 ) -> ExtzResult:
-    """Algorithm dispatch with the reference CLI's parameter mapping."""
+    """Spec-engine dispatch with the reference CLI's parameter mapping."""
     from .spec import diagdiff, rowdp
 
     flag = Flag(int(flag))
@@ -55,7 +55,6 @@ def dispatch(
     ez = ExtzResult()
     ez.reset()
 
-    use_tpu = backend == "tpu"
     if algo == "gg":
         score, cig = rowdp.gg(qs, ts, m, mat, q, e, w=w,
                               with_cigar=not (flag & Flag.SCORE_ONLY))
@@ -70,59 +69,56 @@ def dispatch(
         ez.max, ez.max_t, ez.max_q = 0, -1, -1
         ez.cigar = cig if not (flag & Flag.SCORE_ONLY) else []
     elif algo == "gg2_sse":
-        if use_tpu:
-            from .ops.gg2 import gg2_device
-            score, cig, _ = gg2_device(qs, ts, m, mat, q, e, w=w)
-        else:
-            score, cig, _ = diagdiff.gg2_sse(qs, ts, m, mat, q, e, w=w)
+        score, cig, _ = diagdiff.gg2_sse(qs, ts, m, mat, q, e, w=w)
         ez.score = score
         ez.max, ez.max_t, ez.max_q = 0, -1, -1
         ez.cigar = cig
     elif algo == "extz":
         ez = rowdp.extz(qs, ts, m, mat, q, e, w=w, zdrop=zdrop, flag=flag)
     elif algo == "extz2_sse":
-        if use_tpu:
-            from .ops.extz import extz2_device
-            ez, _ = extz2_device(qs, ts, m, mat, q, e, w=w, zdrop=zdrop, flag=flag)
-        else:
-            ez, _ = diagdiff.extz2(qs, ts, m, mat, q, e, w=w, zdrop=zdrop, flag=flag)
+        ez, _ = diagdiff.extz2(qs, ts, m, mat, q, e, w=w, zdrop=zdrop,
+                               flag=flag)
     elif algo == "extd":
-        ez = rowdp.extd(qs, ts, m, mat, q, e, q2, e2, w=w, zdrop=zdrop, flag=flag)
+        ez = rowdp.extd(qs, ts, m, mat, q, e, q2, e2, w=w, zdrop=zdrop,
+                        flag=flag)
     elif algo == "extd2_sse":
-        if use_tpu:
-            from .ops.extd import extd2_device
-            ez, _ = extd2_device(qs, ts, m, mat, q, e, q2, e2, w=w, zdrop=zdrop, flag=flag)
-        else:
-            ez, _ = diagdiff.extd2(qs, ts, m, mat, q, e, q2, e2, w=w, zdrop=zdrop, flag=flag)
+        ez, _ = diagdiff.extd2(qs, ts, m, mat, q, e, q2, e2, w=w,
+                               zdrop=zdrop, flag=flag)
     elif algo == "extf2_sse":
-        if use_tpu:
-            from .ops.extf import extf2_device
-            ez = extf2_device(qs, ts, int(mat[0]), int(mat[1]), e, w=w,
-                              xdrop=zdrop)
-        else:
-            ez = diagdiff.extf2(qs, ts, int(mat[0]), int(mat[1]), e, w=w,
-                                xdrop=zdrop)
+        ez = diagdiff.extf2(qs, ts, int(mat[0]), int(mat[1]), e, w=w,
+                            xdrop=zdrop)
     elif algo == "exts2_sse":
         smat = simple_mat(5, 1, -2)
-        if use_tpu:
-            from .ops.exts import exts2_device
-            ez, _ = exts2_device(qs, ts, 5, smat, 2, 1, 32, 4, zdrop=zdrop,
-                                 junc_bonus=0, flag=flag | Flag.SPLICE_FOR)
-        else:
-            ez, _ = diagdiff.exts2(qs, ts, 5, smat, 2, 1, 32, 4, zdrop=zdrop,
-                                   junc_bonus=0, flag=flag | Flag.SPLICE_FOR)
+        ez, _ = diagdiff.exts2(qs, ts, 5, smat, 2, 1, 32, 4, zdrop=zdrop,
+                               junc_bonus=0, flag=flag | Flag.SPLICE_FOR)
     elif algo == "test":
-        if use_tpu:
-            from .ops.extd import extd2_device
-            ez, _ = extd2_device(qs, ts, m, mat, 4, 2, 24, 1, w=751, zdrop=400,
-                                 flag=Flag.APPROX_MAX)
-        else:
-            ez, _ = diagdiff.extd2(qs, ts, m, mat, 4, 2, 24, 1, w=751, zdrop=400,
-                                   flag=Flag.APPROX_MAX)
+        ez, _ = diagdiff.extd2(qs, ts, m, mat, 4, 2, 24, 1, w=751, zdrop=400,
+                               flag=Flag.APPROX_MAX)
     else:
         print(f"ERROR: can't find algorithm '{algo}'", file=sys.stderr)
         sys.exit(1)
     return ez
+
+
+def device_batch(algo: str, pairs, a: int = 2, b: int = 4, q: int = 4,
+                 e: int = 2, q2: int = 13, e2: int = 1, w: int = -1,
+                 zdrop: int = -1, flag: Flag | int = Flag.NONE,
+                 rep: int = 1) -> List[ExtzResult]:
+    """Run (query, target) string pairs through the batched device path
+    with the reference CLI's parameter mapping."""
+    from .batch.scheduler import AlignJob, align_batch
+
+    mat = simple_mat(5, a, -b)
+    two = algo != "extz2_sse"
+    if algo == "test":      # cli.c:120-123
+        q, e, q2, e2, w, zdrop, flag = 4, 2, 24, 1, 751, 400, \
+            Flag.APPROX_MAX
+    jobs = [AlignJob(encode_dna(qs), encode_dna(ts), w=w)
+            for qs, ts in pairs]
+    for _ in range(rep):
+        ezs = align_batch(jobs, 5, mat, q, e, q2=q2 if two else None,
+                          e2=e2 if two else None, zdrop=zdrop, flag=flag)
+    return ezs
 
 
 def print_aln(tname: str, qname: str, ez: ExtzResult, out=None) -> None:
@@ -130,83 +126,10 @@ def print_aln(tname: str, qname: str, ez: ExtzResult, out=None) -> None:
     print("\t".join(fields), file=out if out is not None else sys.stdout)
 
 
-def _batch_other(args, pairs, mat, q, e, flag, kw):
-    """Whole-file batched dispatch for gg2/extf/exts; pairs the batched
-    engines cannot take (long targets, gg2's block-overrun shape) fall
-    back to the per-pair dispatch."""
-    import numpy as np
-
-    from .core.matrix import encode_dna
-
-    enc = [(encode_dna(qrec.seq), encode_dna(trec.seq))
-           for trec, qrec in pairs]
-    n = len(enc)
-    results: List[Optional[ExtzResult]] = [None] * n
-    wv = [args.w if args.w >= 0 else max(len(qs), len(ts))
-          for qs, ts in enc]
-    elig = []
-    for i, (qs, ts) in enumerate(enc):
-        ok = 0 < len(ts) <= 1024 and len(qs) > 0
-        if args.algo == "gg2_sse":
-            ok = ok and len(qs) <= len(ts) + wv[i]
-        elig.append(ok)
-
-    idxs = [i for i in range(n) if elig[i]]
-    if idxs:
-        B = len(idxs)
-        Lq = max(len(enc[i][0]) for i in idxs)
-        Lt = max(len(enc[i][1]) for i in idxs)
-        Q = np.zeros((B, Lq), np.int32)
-        T = np.zeros((B, Lt), np.int32)
-        qlen = np.zeros(B, np.int32)
-        tlen = np.zeros(B, np.int32)
-        wb_ = np.zeros(B, np.int32)
-        for k, i in enumerate(idxs):
-            qs, ts = enc[i]
-            Q[k, :len(qs)] = qs
-            T[k, :len(ts)] = ts
-            qlen[k], tlen[k], wb_[k] = len(qs), len(ts), wv[i]
-        if args.algo == "gg2_sse":
-            from .ops.batch_pallas import gg2_batch_align
-            outs = gg2_batch_align(Q, T, qlen, tlen, 5, mat, q, e, wb_)
-            for k, i in enumerate(idxs):
-                ez = ExtzResult()
-                ez.reset()
-                ez.score, ez.cigar = outs[k][0], outs[k][1]
-                ez.max, ez.max_t, ez.max_q = 0, -1, -1
-                results[i] = ez
-        elif args.algo == "extf2_sse":
-            from .ops.batch_pallas import extf_batch_device
-            out = extf_batch_device(Q, T, qlen, tlen, int(mat[0]),
-                                    int(mat[1]), e, w=wb_,
-                                    xdrop=args.zdrop)
-            for k, i in enumerate(idxs):
-                ez = ExtzResult()
-                ez.reset()
-                for f in ("max", "max_t", "max_q", "score"):
-                    setattr(ez, f, int(out[f][k]))
-                ez.zdropped = bool(out["zdropped"][k])
-                results[i] = ez
-        else:   # exts2_sse
-            from .core.matrix import simple_mat
-            from .ops.batch_pallas import exts_batch_align
-            smat = simple_mat(5, 1, -2)
-            ezs = exts_batch_align(Q, T, qlen, tlen, 5, smat, 2, 1, 32, 4,
-                                   zdrop=args.zdrop,
-                                   flag=flag | Flag.SPLICE_FOR)
-            for k, i in enumerate(idxs):
-                results[i] = ezs[k]
-    for i in range(n):
-        if results[i] is None:
-            results[i] = dispatch(args.algo, pairs[i][1].seq,
-                                  pairs[i][0].seq, **kw)
-    return results
-
-
 def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser(
         prog="ksw2-tpu", add_help=True,
-        description="TPU-native pairwise alignment (ksw2-test compatible)")
+        description="batched pairwise alignment (ksw2-test compatible)")
     ap.add_argument("-t", dest="algo", default="extd",
                     help=f"algorithm: {', '.join(ALGOS)} [extd]")
     ap.add_argument("-w", dest="w", type=int, default=-1, help="band width [inf]")
@@ -223,8 +146,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("-E", dest="gape", default="2,1", help="gap ext [2,1]")
     ap.add_argument("-a", dest="all_vs_all", action="store_true", help="all vs all")
     ap.add_argument("--backend", default=None,
-                    choices=("spec", "tpu", "batch"),
-                    help="engine backend [tpu when a TPU is attached, "
+                    choices=("spec", "device"),
+                    help="engine backend [device when JAX finds a GPU, "
                          "else spec]")
     ap.add_argument("--stats", action="store_true",
                     help="print the km_stat-style engine report to stderr")
@@ -233,24 +156,16 @@ def main(argv: Optional[List[str]] = None) -> int:
     args = ap.parse_args(argv)
 
     if args.backend is None:
-        # default to the TPU engines when a TPU is attached (the analogue
-        # of the reference's runtime CPU dispatch picking the widest SIMD)
-        try:
-            import jax
+        # the analogue of the reference's runtime dispatch picking the
+        # widest SIMD the machine has
+        import jax
 
-            args.backend = ("tpu" if jax.default_backend() == "tpu"
-                            else "spec")
-        except Exception:
-            args.backend = "spec"
-
-    if args.backend in ("tpu", "batch"):
-        # persistent executable cache: kernel compiles cost 20-40 s each,
-        # so CLI invocations (one process per run, like the reference
-        # binary) reuse them across processes (also set on package import;
-        # repeated here for when the import graph changes)
-        from .utils.ccache import ensure_compile_cache
-
-        ensure_compile_cache()
+        args.backend = "device" if jax.default_backend() == "gpu" else "spec"
+    if args.backend == "device" and args.algo not in DEVICE_ALGOS:
+        print(f"ERROR: algorithm '{args.algo}' has no device engine (device "
+              f"algorithms: {', '.join(DEVICE_ALGOS)}); use --backend spec",
+              file=sys.stderr)
+        return 1
 
     if args.stats:
         # like km_stat's end-of-run stderr report (kalloc.c:191-214), on
@@ -279,57 +194,40 @@ def main(argv: Optional[List[str]] = None) -> int:
         flag |= Flag.APPROX_MAX | Flag.APPROX_DROP
 
     kw = dict(a=args.a, b=args.b, q=q, e=e, q2=q2, e2=e2, w=args.w,
-              zdrop=args.zdrop, flag=flag, backend=args.backend)
+              zdrop=args.zdrop, flag=flag)
 
     t_is_file = os.path.exists(args.target)
     q_is_file = os.path.exists(args.query)
     if not t_is_file and not q_is_file:
         # literal sequences (the reference maps argv[optind+1] to the query)
-        ez = dispatch(args.algo, args.query, args.target, **kw)
-        print_aln("first", "second", ez)
-        return 0
-    if not (t_is_file and q_is_file):
+        pairs = [("first", "second", args.query, args.target)]
+    elif not (t_is_file and q_is_file):
         print("ERROR: need two readable files or two literal sequences",
               file=sys.stderr)
         return 1
-
-    from .io.fasta import read_fastx
-
-    if not args.all_vs_all:
-        pairs = [(trec, qrec) for trec, qrec in
-                 zip(read_fastx(args.target), read_fastx(args.query))]
     else:
-        targets = list(read_fastx(args.target))
-        pairs = [(trec, qrec) for qrec in read_fastx(args.query)
-                 for trec in targets]
+        from .io.fasta import read_fastx
 
-    batch_algos = ("extz2_sse", "extd2_sse", "gg2_sse", "extf2_sse",
-                   "exts2_sse")
-    if args.backend == "batch" and args.algo in batch_algos:
-        # whole-file batched dispatch
-        from .core.matrix import encode_dna, simple_mat
-
-        mat = simple_mat(5, args.a, -args.b)
-        if args.algo in ("extz2_sse", "extd2_sse"):
-            from .batch.scheduler import AlignJob, align_batch
-            jobs = [AlignJob(encode_dna(qrec.seq), encode_dna(trec.seq),
-                             w=args.w) for trec, qrec in pairs]
-            two = args.algo == "extd2_sse"
-            for _ in range(args.rep):
-                ezs = align_batch(jobs, 5, mat, q, e,
-                                  q2=q2 if two else None,
-                                  e2=e2 if two else None,
-                                  zdrop=args.zdrop, flag=flag)
+        if not args.all_vs_all:
+            recs = zip(read_fastx(args.target), read_fastx(args.query))
         else:
-            ezs = _batch_other(args, pairs, mat, q, e, flag, kw)
-        for (trec, qrec), ez in zip(pairs, ezs):
-            print_aln(trec.name, qrec.name, ez)
-        return 0
+            targets = list(read_fastx(args.target))
+            recs = [(trec, qrec) for qrec in read_fastx(args.query)
+                    for trec in targets]
+        pairs = [(trec.name, qrec.name, qrec.seq, trec.seq)
+                 for trec, qrec in recs]
 
-    for trec, qrec in pairs:
-        for _ in range(args.rep):
-            ez = dispatch(args.algo, qrec.seq, trec.seq, **kw)
-        print_aln(trec.name, qrec.name, ez)
+    if args.backend == "device":
+        ezs = device_batch(args.algo, [(p[2], p[3]) for p in pairs],
+                           rep=args.rep, **kw)
+    else:
+        ezs = []
+        for _, _, qs, ts in pairs:
+            for _ in range(args.rep):
+                ez = dispatch(args.algo, qs, ts, **kw)
+            ezs.append(ez)
+    for (tname, qname, _, _), ez in zip(pairs, ezs):
+        print_aln(tname, qname, ez)
     return 0
 
 

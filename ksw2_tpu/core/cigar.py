@@ -2,9 +2,7 @@
 
 Encoding follows the BAM convention used by the reference
 (``/root/reference/ksw2.h:113-123``): each uint32 stores ``length << 4 | op``.
-Adjacent equal ops merge on push.  This module is the pure-Python codec; the
-native C++ runtime (:mod:`ksw2_tpu.native`) provides the same operations for
-the hot host-side path.
+Adjacent equal ops merge on push.
 """
 from __future__ import annotations
 

@@ -2,10 +2,7 @@
 
 Supports plain and gzip files, multi-line records, FASTA ('>') and FASTQ
 ('@') with name/comment/seq/qual — the same record model as the reference's
-``kseq_read`` (kseq.h:177-218).  The pure-Python implementation here is the
-portable path; :mod:`ksw2_tpu.native` provides a buffered C++ reader with the
-same record model for the hot host-side path (selected automatically when
-the extension is built).
+``kseq_read`` (kseq.h:177-218).
 """
 from __future__ import annotations
 

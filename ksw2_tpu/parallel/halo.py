@@ -1,4 +1,4 @@
-"""Cross-chip splitting of ONE alignment: target-sharded halo wavefront.
+"""Cross-device splitting of ONE alignment: target-sharded halo wavefront.
 
 Every other distributed surface in this framework shards the *pair batch*
 (pairs are independent).  This module shards a single huge DP matrix: the
@@ -16,10 +16,10 @@ device d-1 has finished block b: a classic wavefront pipeline with skew 1.
 Per round, each device advances K diagonals over its local lanes and
 ships a (K, 3) package of boundary (x, v, H) values to its right
 neighbour with ``lax.ppermute`` -- the halo.  Pipeline fill/drain costs
-(n_devices - 1) rounds; comm is one small ppermute per round, riding ICI.
+(n_devices - 1) rounds; comm is one small ppermute per round between neighbouring devices.
 
 This is the DP analogue of sequence/context parallelism (SURVEY.md
-section 5): one sequence too big for a chip's wavefront spreads over the
+section 5): one sequence too big for a device's wavefront spreads over the
 mesh, state crossing chips is O(1) per diagonal.  Scope: one-piece affine
 extension (extz2 semantics), score-only, exact deferred max -- byte parity
 with ``ksw_extz2_sse`` for banded and unbanded runs.  Z-drop is
@@ -28,8 +28,8 @@ max every diagonal, which would force a full-mesh reduction per diagonal
 and serialize the pipeline; batch-axis sharding (parallel/mesh.py) is the
 right tool for droppable extensions.
 
-Byte representation matches the single-chip kernels: unsigned canon,
-deltas carried one per int32 lane, 16-rounded band blocks with the
+Byte representation: the unsigned canon (deltas carried one per int32
+lane, SSE byte ops as masked int32 ops), 16-rounded band blocks with the
 reference's garbage-lane evolution, the stale st-1 edge override, and the
 H/HM/RD deferred-max finalization with SSE merge-order tie-breaks.
 """
@@ -44,9 +44,12 @@ import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..core.flags import NEG_INF, Flag
-from ..ops.bands import round_up
 
 I32 = jnp.int32
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
 _INT_MIN = -(2 ** 31) + 1
 
 
@@ -84,8 +87,7 @@ def _halo_body(qlen, tlen, w, rlim, sc, K, C, D, axis, carry_in, query_pad,
         ut = jnp.where(col_mask, ucol, u)
         yt = jnp.where(col_mask, 0, y)
 
-        # query symbol plane: closed form of the injection shift chain
-        # (wavefront_batch.py): query[min(r - t, qlen - 1)] once r >= t,
+        # query symbol plane: query[min(r - t, qlen - 1)] once r >= t,
         # init value 0 before that
         qidx = jnp.clip(r - lane, 0, qlen - 1)
         Qn = jnp.where(r >= lane, jnp.take(query_pad, qidx), 0)
@@ -123,7 +125,7 @@ def _halo_body(qlen, tlen, w, rlim, sc, K, C, D, axis, carry_in, query_pad,
         xn = jnp.where(bmask, jnp.where((an ^ 128) > 128, an, 0), x)
         yn = jnp.where(bmask, jnp.where((bn ^ 128) > 128, bn, 0), y)
 
-        # int32 H row (vector column identities, wavefront_batch.py)
+        # int32 H row (vector column identities)
         is0 = r == 0
         Hs_prev = jnp.where(lane0, NEG_INF,
                             jnp.concatenate([bH[None], H[:-1]]))
@@ -171,8 +173,6 @@ def _cached_halo(mesh_id, TV, C, D, K, axis, qlen, tlen, w, sc_items):
     rlim = min(ndb, 2 * qlen + w - 1, 2 * tlen + w - 1,
                1 if w == 0 else ndb)
 
-    from ksw2_tpu.parallel.mesh import shard_map  # jax-version shim
-
     def run(query_pad, target_pad):
         def body(query_pad, target_loc):
             dev = jax.lax.axis_index(axis)
@@ -193,11 +193,11 @@ def _cached_halo(mesh_id, TV, C, D, K, axis, qlen, tlen, w, sc_items):
             (_, u, v, x, y, s, H, HM, RD, MQ, pbs, rx, cb) = c
             return H, HM, RD, MQ
 
-        # check_rep off: the loop carry starts replicated (zeros) and
+        # check_vma off: the loop carry starts replicated (zeros) and
         # becomes device-varying through ppermute/axis_index
-        f = shard_map(body, mesh=mesh,
-                      in_specs=(P(), P(axis)),
-                      out_specs=(P(axis),) * 4, check_rep=False)
+        f = jax.shard_map(body, mesh=mesh,
+                          in_specs=(P(), P(axis)),
+                          out_specs=(P(axis),) * 4, check_vma=False)
         return f(query_pad, target_pad)
 
     return jax.jit(run)
@@ -243,7 +243,7 @@ def halo_extz_score(
         w = max(qlen, tlen)
     axis = mesh.axis_names[0]
     D = mesh.shape[axis]
-    TV = round_up(max(tlen, 1), 128 * D)
+    TV = _round_up(max(tlen, 1), 128 * D)
     C = TV // D
     K = int(block_diagonals)
     sc_N = -e if int(mat[m * m - 1]) == 0 else int(mat[m * m - 1])
@@ -269,7 +269,7 @@ def halo_extz_score(
 
 def _finalize(ez, H, HM, RD, MQ, qlen, tlen, w):
     """Host finalization: the deferred-max reduction with the exact scan
-    tie-breaks (port of wavefront_batch.py's no-zdrop _emit branch)."""
+    tie-breaks of the reference's no-Z-drop scan."""
     ndc = qlen + tlen - 1
     rlim = min(ndc, 2 * qlen + w - 1, 2 * tlen + w - 1,
                1 if w == 0 else ndc)

@@ -1,35 +1,21 @@
-"""Multi-chip scale-out: data-parallel sharding of the pair batch.
+"""Multi-device scale-out: data-parallel sharding of the pair batch.
 
-The reference has no distributed story (single-threaded C); the TPU-native
-equivalent shards the padded pair batch over a ``jax.sharding.Mesh`` with
-``shard_map`` -- pairs are independent, so the forward needs no collectives;
-result records are gathered back (``out_specs`` sharded, XLA inserts the
-all-gather on host fetch), and an optional ``psum`` aggregates batch
-statistics over ICI to exercise the collective path.
+Pairs are independent, so a launch shards its batch axis over a flat
+``jax.sharding.Mesh`` with ``shard_map`` and every device runs the same
+forward and traceback on its slice; no collective is needed until the
+results are gathered.  The devices of one host are joined all to all, so
+the mesh follows the batch alone (:func:`make_mesh`).
 
-Multi-host: call :func:`init_distributed` first (jax.distributed), then
-build the mesh over all devices; each host feeds its local shard.
+Multi-host: call :func:`init_distributed` first (``jax.distributed``),
+then build the mesh over all devices; each host feeds its local shard.
 """
 from __future__ import annotations
 
-import functools
 from typing import Optional
 
 import jax
-import jax.numpy as jnp
 import numpy as np
-try:
-    from jax import shard_map as _shard_map
-
-    def shard_map(f=None, **kw):            # jax >= 0.8 renamed check_rep
-        if "check_rep" in kw:
-            kw["check_vma"] = kw.pop("check_rep")
-        return _shard_map(f, **kw) if f is not None else _shard_map(**kw)
-except ImportError:  # older jax
-    from jax.experimental.shard_map import shard_map
 from jax.sharding import Mesh, PartitionSpec as P
-
-from ..ops.batch_xla import BatchSpec, extz_batch_scores
 
 
 def init_distributed(coordinator: Optional[str] = None, **kw) -> None:
@@ -45,678 +31,15 @@ def make_mesh(n_devices: Optional[int] = None, axis: str = "data") -> Mesh:
     return Mesh(np.array(devs), (axis,))
 
 
-@functools.lru_cache(maxsize=256)
-def _cached_shard_records(mesh: Mesh, run, n_in: int):
-    """shard_map-wrap a batch-records engine ONCE per (mesh, engine).
-
-    The wrapped callable (and its jit executable) must be cached: a fresh
-    shard_map closure per call re-traces and re-compiles the whole engine
-    every call — on the virtual CPU mesh that was ~1.9 s of pure compile
-    per align call, which is what MULTICHIP_r02's 0.11 "efficiency"
-    actually measured.  ``run`` comes from an lru-cached builder, so its
-    identity is stable and keys this cache.
-    """
+def shard_batch(mesh: Mesh, fn, n_sharded: int, n_replicated: int = 2):
+    """Jit ``fn`` with its first ``n_sharded`` arguments and every output
+    split along the batch axis over ``mesh``; the ``n_replicated``
+    arguments after them (the scoring matrix and parameters) are
+    replicated."""
     axis = mesh.axis_names[0]
+    return jax.jit(jax.shard_map(
+        fn, mesh=mesh, in_specs=(P(axis),) * n_sharded
+        + (P(),) * n_replicated, out_specs=P(axis), check_vma=False))
 
-    @functools.partial(
-        shard_map, mesh=mesh,
-        in_specs=(P(axis),) * n_in,
-        out_specs=P(None, axis),
-        check_rep=False,
-    )
-    def _run(*args):
-        res = run(*args)                       # (Rs, NFIELDS)
-        return res.T[:, :, None].reshape(res.shape[1], -1)
 
-    return jax.jit(_run)
-
-
-@functools.lru_cache(maxsize=256)
-def _cached_sharded_extz(mesh: Mesh, spec: BatchSpec):
-    """Build-once shard_map wrapper for the XLA scan scorer (see
-    :func:`_cached_shard_records` for why caching is load-bearing)."""
-    axis = mesh.axis_names[0]
-
-    @functools.partial(
-        shard_map,
-        mesh=mesh,
-        in_specs=(P(axis), P(axis), P(axis), P(axis), P(axis)),
-        out_specs=(P(None, axis), P()),
-        check_rep=False,
-    )
-    def _run(Q, T, ql, tl, wv):
-        out = extz_batch_scores(spec, Q, T, ql, tl, wv)
-        # aggregate statistic over the mesh (exercises ICI collectives)
-        local_best = jnp.max(out["max"])
-        best = jax.lax.pmax(local_best, axis)
-        stacked = jnp.stack([out[k] for k in _FIELDS], axis=0)
-        return stacked, best[None]
-
-    return jax.jit(_run)
-
-
-def sharded_extz_scores(mesh: Mesh, spec: BatchSpec, query, target, qlen, tlen, w):
-    """Run the batched scorer with the batch axis sharded over the mesh.
-
-    The batch dimension must be divisible by the mesh size (the scheduler
-    pads).  Returns the same result dict, fully addressable on the host,
-    plus a ``batch_max`` scalar reduced with ``psum``-style collectives.
-    """
-    _run = _cached_sharded_extz(mesh, spec)
-    stacked, best = _run(query, target, qlen, tlen, w)
-    out = {k: stacked[i] for i, k in enumerate(_FIELDS)}
-    out["batch_max"] = best[0]
-    return out
-
-
-_FIELDS = ("max", "max_t", "max_q", "mqe", "mqe_t", "mte", "mte_q",
-           "score", "zdropped")
-
-
-def sharded_extz_scores_pallas(mesh: Mesh, query, target, qlen, tlen, w,
-                               m, mat, q, e, zdrop=-1,
-                               interpret: bool = False):
-    """Shard the one-pair-per-row Pallas engine over the mesh.
-
-    Each device runs the production batch kernel on its pair shard; the
-    field records gather back on fetch.  ``interpret`` enables the CPU
-    interpreter per shard (for simulated-mesh tests).
-    """
-    import numpy as np_
-    from ..core.flags import Flag
-    from ..ops import wavefront_batch as wb
-    from ..ops.batch_pallas import _cached_run
-
-    axis = mesh.axis_names[0]
-    n_shards = mesh.devices.size
-    B, Lq = query.shape
-    assert B % n_shards == 0, "pad the batch to the mesh size"
-    Rs = B // n_shards
-    mat = np_.asarray(mat, dtype=np_.int8).reshape(-1)
-    sc_N = -e if int(mat[m * m - 1]) == 0 else int(mat[m * m - 1])
-    n_diag = int(np_.asarray(qlen + tlen).max()) - 1
-    n_diag = max((n_diag + wb.CHUNK - 1) // wb.CHUNK * wb.CHUNK, wb.CHUNK)
-    prm = wb.BatchParams(
-        n_rows=Rs, n_diag=n_diag, m=m,
-        sc_mch=int(mat[0]), sc_mis=int(mat[1]), sc_N=sc_N,
-        q=int(q), e=int(e), zdrop=int(zdrop), flag=int(Flag.SCORE_ONLY),
-    )
-    run = _cached_run(prm, interpret)
-
-    _run = _cached_shard_records(mesh, run, 5)
-
-    stacked = _run(query, target, qlen, tlen, w)
-    return {k: stacked[i] for i, k in enumerate(_FIELDS)}
-
-
-def sharded_extd_scores_pallas(mesh: Mesh, query, target, qlen, tlen, w,
-                               m, mat, q, e, q2, e2, zdrop=-1,
-                               interpret: bool = False):
-    """Shard the two-piece batch engine over the mesh (score-only)."""
-    import numpy as np_
-    from ..core.flags import Flag
-    from ..ops import wavefront_batch as wb
-    from ..ops.batch_pallas import _cached_run_extd, _extd_batch_params
-
-    axis = mesh.axis_names[0]
-    n_shards = mesh.devices.size
-    B, Lq = query.shape
-    Lt = target.shape[1]
-    assert B % n_shards == 0, "pad the batch to the mesh size"
-    assert Lt <= 1536, "the packed argmax key caps the engines at P = 12"
-    Bs = B // n_shards
-    Pp = (Lt + 127) // 128   # rows per pair; any P in 1..12
-    assert (Bs * Pp) % 8 == 0, "pad the batch so each shard rows %% 8 == 0"
-    qlen_h = np_.asarray(qlen)
-    tlen_h = np_.asarray(tlen)
-    prm, _, _ = _extd_batch_params(
-        Bs, Lq, qlen_h, tlen_h, m, np_.asarray(mat), q, e, q2, e2, zdrop,
-        int(Flag.SCORE_ONLY), wb.CHUNK, Pp)
-    run = _cached_run_extd(prm, interpret)
-
-    _run = _cached_shard_records(mesh, run, 5)
-
-    stacked = _run(query, target, qlen, tlen, w)
-    return {k: stacked[i] for i, k in enumerate(_FIELDS)}
-
-
-def sharded_band_scores(mesh: Mesh, query, target, qlen, tlen, w,
-                        m, mat, q, e, zdrop=-1, interpret: bool = False):
-    """Shard the band-relative long-pair engine over the mesh."""
-    import numpy as np_
-    from ..core.flags import Flag
-    from ..ops import wavefront_band as wband
-    from ..ops import wavefront_batch as wb
-    from ..ops.band_batch import _cached_run_band, _pick_p
-
-    axis = mesh.axis_names[0]
-    n_shards = mesh.devices.size
-    B, Lq = query.shape
-    assert B % n_shards == 0, "pad the batch to the mesh size"
-    Bs = B // n_shards
-    w_h = np_.asarray(w)
-    W = int(w_h.max())
-    Pp = _pick_p(W)
-    assert (Bs * Pp) % 8 == 0, "pad the batch so each shard rows %% 8 == 0"
-    qlen_h = np_.asarray(qlen)
-    tlen_h = np_.asarray(tlen)
-    mat = np_.asarray(mat, dtype=np_.int8).reshape(-1)
-    sc_N = -e if int(mat[m * m - 1]) == 0 else int(mat[m * m - 1])
-    n_diag = int((qlen_h + tlen_h).max()) - 1
-    n_diag = max((n_diag + wb.CHUNK - 1) // wb.CHUNK * wb.CHUNK, wb.CHUNK)
-    prm = wband.BandParams(
-        n_rows=Bs * Pp, n_diag=n_diag, m=m,
-        sc_mch=int(mat[0]), sc_mis=int(mat[1]), sc_N=sc_N,
-        q=int(q), e=int(e), w=W, zdrop=int(zdrop),
-        flag=int(Flag.SCORE_ONLY), p=Pp,
-    )
-    run = _cached_run_band(prm, interpret)
-
-    _run = _cached_shard_records(mesh, run, 5)
-
-    stacked = _run(query, target, qlen, tlen, w)
-    return {k: stacked[i] for i, k in enumerate(_FIELDS)}
-
-
-def pad_batch_for_mesh(arrays, n_shards: int):
-    """Pad the leading batch dim of each array to a multiple of n_shards."""
-    B = arrays[0].shape[0]
-    Bp = (B + n_shards - 1) // n_shards * n_shards
-    if Bp == B:
-        return arrays, B
-    out = []
-    for a in arrays:
-        pad = [(0, Bp - B)] + [(0, 0)] * (a.ndim - 1)
-        out.append(np.pad(np.asarray(a), pad))
-    return out, B
-
-
-__all__ = ["init_distributed", "make_mesh", "sharded_extz_scores",
-           "sharded_extz_scores_pallas", "sharded_extd_scores_pallas",
-           "sharded_band_scores", "pad_batch_for_mesh"]
-
-
-def sharded_exts_scores_pallas(mesh: Mesh, query, target, qlen, tlen,
-                               m, mat, q, e, q2, noncan, zdrop=-1,
-                               junc_bonus=0, flag=None, junc=None,
-                               interpret: bool = False):
-    """Shard the spliced-extension batch engine over the mesh (score-only).
-
-    Donor/acceptor profile planes are host-precomputed for the full batch
-    (one (R,128) biased plane each, R = B * P rows) and sharded along the
-    row axis together with the sequences.
-    """
-    import numpy as np_
-    from ..core.flags import Flag
-    from ..ops import wavefront_batch as wb
-    from ..ops import wavefront_batch_exts as wbs
-    from ..ops.batch_pallas import _cached_run_exts, _exts_batch_prep
-
-    axis = mesh.axis_names[0]
-    n_shards = mesh.devices.size
-    B, Lq = query.shape
-    Lt = target.shape[1]
-    assert B % n_shards == 0, "pad the batch to the mesh size"
-    assert Lt <= 1536, "the packed argmax key caps the engines at P = 12"
-    Bs = B // n_shards
-    Pp = (Lt + 127) // 128
-    assert (Bs * Pp) % 8 == 0, "pad the batch so each shard rows %% 8 == 0"
-    fl = Flag(int(Flag.SCORE_ONLY if flag is None else flag))
-    fl |= Flag.SCORE_ONLY
-    qlen_h = np_.asarray(qlen)
-    tlen_h = np_.asarray(tlen)
-    matf, long_thres, long_diff, sc_N, donb, accb = _exts_batch_prep(
-        B, np_.asarray(target), tlen_h, m, np_.asarray(mat), int(q), int(e),
-        int(q2), int(noncan), fl, junc, junc_bonus, B * Pp, Pp)
-    n_diag = int((qlen_h + tlen_h).max()) - 1
-    n_diag = max((n_diag + wb.CHUNK - 1) // wb.CHUNK * wb.CHUNK, wb.CHUNK)
-    prm = wbs.BatchExtsParams(
-        n_rows=Bs * Pp, n_diag=n_diag, m=m,
-        sc_mch=int(matf[0]), sc_mis=int(matf[1]), sc_N=sc_N,
-        q=int(q), e=int(e), q2=int(q2),
-        long_thres=int(long_thres), long_diff=int(long_diff),
-        zdrop=int(zdrop), flag=int(fl), p=Pp,
-    )
-    run = _cached_run_exts(prm, interpret, False)
-
-    _run = _cached_shard_records(mesh, run, 6)
-
-    stacked = _run(jnp.asarray(np_.asarray(query, np_.int8)),
-                   jnp.asarray(np_.asarray(target, np_.int8)),
-                   jnp.asarray(donb), jnp.asarray(accb),
-                   jnp.asarray(qlen_h.astype(np_.int32)),
-                   jnp.asarray(tlen_h.astype(np_.int32)))
-    return {k: stacked[i] for i, k in enumerate(_FIELDS)}
-
-
-def sharded_extf_scores_pallas(mesh: Mesh, query, target, qlen, tlen, w,
-                               mch, mis, e, xdrop=-1,
-                               interpret: bool = False):
-    """Shard the linear-gap (extf2) batch engine over the mesh."""
-    import numpy as np_
-    from ..ops import wavefront_batch as wb
-    from ..ops import wavefront_batch_extf as wbf
-    from ..ops.batch_pallas import _cached_run_extf
-
-    axis = mesh.axis_names[0]
-    n_shards = mesh.devices.size
-    B, Lq = query.shape
-    Lt = target.shape[1]
-    assert B % n_shards == 0, "pad the batch to the mesh size"
-    assert Lt <= 1536, "the packed argmax key caps the engines at P = 12"
-    Bs = B // n_shards
-    Pp = (Lt + 127) // 128
-    assert (Bs * Pp) % 8 == 0, "pad the batch so each shard rows %% 8 == 0"
-    mis = int(mis) if int(mis) < 0 else -int(mis)
-    qlen_h = np_.asarray(qlen)
-    tlen_h = np_.asarray(tlen)
-    n_diag = int((qlen_h + tlen_h).max()) - 1
-    n_diag = max((n_diag + wb.CHUNK - 1) // wb.CHUNK * wb.CHUNK, wb.CHUNK)
-    prm = wbf.BatchExtfParams(
-        n_rows=Bs * Pp, n_diag=n_diag, mch=int(mch), mis=mis, e=int(e),
-        xdrop=int(xdrop), p=Pp,
-    )
-    run = _cached_run_extf(prm, interpret)
-
-    _run = _cached_shard_records(mesh, run, 5)
-
-    stacked = _run(jnp.asarray(np_.asarray(query, np_.int8)),
-                   jnp.asarray(np_.asarray(target, np_.int8)),
-                   jnp.asarray(qlen_h.astype(np_.int32)),
-                   jnp.asarray(tlen_h.astype(np_.int32)),
-                   jnp.asarray(np_.asarray(w, np_.int32)))
-    out = {k: stacked[i] for i, k in enumerate(_FIELDS)}
-    # extf2 is score-only without query/target-end tracking: expose the
-    # fields the reference kernel defines (ksw2_extf2_sse.c)
-    return {k: out[k] for k in ("max", "max_t", "max_q", "score",
-                                "zdropped")}
-
-
-def sharded_strips_records(mesh: Mesh, query, target, qlen, tlen, m, mat,
-                           q: int, e: int, zdrop: int = -1,
-                           flag=None, two: bool = False, q2: int = 0,
-                           e2: int = 0, interpret: bool = False):
-    """Strip-tiled engine shard_mapped over the mesh batch axis.
-
-    The same engine the LOCAL scheduler picks for effectively-unbanded
-    score-only buckets (one engine-selection logic for both paths —
-    round-3 judge item): every shard runs one strips launch planned from
-    the GLOBAL maxima, records gather back.  Host-side inputs; returns a
-    (B, NFIELDS) device record array.
-    """
-    from ..core.flags import Flag
-    from ..ops.packio import pack_bases
-    from ..ops.wavefront_strips import (_plan_rows, _strips_plan,
-                                        _strips_run_fn, StripParams,
-                                        round_up)
-    from ..spec.strips_extd import long_params
-
-    flag = Flag(int(Flag.SCORE_ONLY if flag is None else flag))
-    if not interpret and jax.default_backend() != "tpu":
-        interpret = True
-    n = mesh.devices.size
-    qlen = np.asarray(qlen, np.int32)
-    tlen = np.asarray(tlen, np.int32)
-    query = np.asarray(query, np.int8)
-    target = np.asarray(target, np.int8)
-    B, Lq = query.shape
-    Bs = -(-B // n)                      # jobs per shard
-    q, e = int(q), int(e)
-    lt = ld = off0 = 0
-    if two:
-        q2, e2 = int(q2), int(e2)
-        qe_pre = q + e
-        if q2 + e2 < q + e:
-            q, q2 = q2, q
-            e, e2 = e2, e
-        lt, ld = long_params(q, e, q2, e2)
-        off0 = (q + e) - qe_pre
-    matf = np.asarray(mat, dtype=np.int8).reshape(-1)
-    eN = e2 if two else e
-    sc_N = -eN if int(matf[m * m - 1]) == 0 else int(matf[m * m - 1])
-    S0, tlenp, _ = _strips_plan(B, Lq, qlen, tlen)
-    S, Bp = _plan_rows(Bs, S0, tlenp)
-    t_real = tlenp + S - 1
-    t_pad = round_up(t_real + 1, 128)
-    generic = bool(flag & Flag.GENERIC_SC)
-    prm = StripParams(
-        n_rows=Bp * S, s=S, tv=tlenp, t_pad=t_pad, t_real=t_real, m=m,
-        q=q, e=e, mat0=int(matf[0]), sc_mis=int(matf[1]), sc_N=sc_N,
-        zdrop=int(zdrop), flag=int(flag),
-        matt=tuple(int(v) for v in matf) if generic else (),
-        two=int(two), q2=int(q2), e2=int(e2), lt=lt, ld=ld, off0=off0)
-    qpad = np.zeros((n * Bp, S * 128), np.int8)
-    tpad = np.zeros((n * Bp, tlenp), np.int8)
-    lens = np.zeros((2, n * Bp), np.int32)
-    for k in range(n):
-        i0, i1 = k * Bs, min((k + 1) * Bs, B)
-        if i1 <= i0:
-            continue
-        o = k * Bp
-        qpad[o:o + i1 - i0, :min(Lq, S * 128)] = query[i0:i1, :S * 128]
-        tpad[o:o + i1 - i0, :min(target.shape[1], tlenp)] = \
-            target[i0:i1, :tlenp]
-        lens[0, o:o + i1 - i0] = qlen[i0:i1]
-        lens[1, o:o + i1 - i0] = tlen[i0:i1]
-    run = _strips_run_fn(prm, interpret)
-    _run = _cached_shard_records(mesh, run, 4)
-    stacked = _run(jnp.asarray(pack_bases(qpad)),
-                   jnp.asarray(pack_bases(tpad)),
-                   jnp.asarray(lens[0]), jnp.asarray(lens[1]))
-    # (NFIELDS, n*Bp) -> per-shard valid rows -> (B, NFIELDS)
-    rec = stacked.reshape(stacked.shape[0], n, Bp)[:, :, :Bs]
-    return rec.reshape(stacked.shape[0], n * Bs).T[:B]
-
-
-@functools.lru_cache(maxsize=256)
-def _cached_shard_cigar(mesh: Mesh, prm, Bp: int, end_bonus: int,
-                        interpret: bool):
-    """Build-once shard_map wrapper for the fused strips-CIGAR program
-    (see :func:`_cached_shard_records` for why caching is load-bearing);
-    each shard returns its flat int32 (rec | res | runs) vector."""
-    from ..ops.strips_walker import _fused_one
-
-    fused, _ = _fused_one(prm, Bp, end_bonus, interpret)
-    axis = mesh.axis_names[0]
-
-    @functools.partial(
-        shard_map, mesh=mesh,
-        in_specs=(P(axis), P(axis), P(axis), P(axis)),
-        out_specs=P(axis),
-        check_rep=False,
-    )
-    def _run(qpk, tpk, ql, tl):
-        return fused(qpk, tpk, ql, tl)
-
-    return jax.jit(_run)
-
-
-def sharded_strips_cigar(mesh: Mesh, query, target, qlen, tlen, m, mat,
-                         q: int, e: int, zdrop: int = -1,
-                         end_bonus: int = 0, flag=None,
-                         two: bool = False, q2: int = 0, e2: int = 0,
-                         interpret: Optional[bool] = None):
-    """Fused strips-CIGAR (byte-emitting forward + batched run-consuming
-    walkers + capped runs) shard_mapped over the mesh batch axis — the
-    round-5 production CIGAR route, multi-chip.  One launch shape is
-    planned from the GLOBAL maxima (every shard compiles the same
-    program); each shard's flat output gathers on the single fetch.
-    Returns per-job ``ExtzResult`` with CIGARs, byte-equal to the local
-    fused route."""
-    from ..core.flags import Flag
-    from ..ops.packio import pack_bases
-    from ..ops.strips_walker import (_flat_len, strips_cigar_align,
-                                     unpack_cigar_flat)
-    from ..ops.wavefront_strips import (StripParams, _plan_rows,
-                                        _strips_plan, round_up)
-    from ..spec.strips_extd import long_params
-
-    flag = Flag(int(Flag.NONE if flag is None else flag))
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    n = mesh.devices.size
-    qlen = np.asarray(qlen, np.int32)
-    tlen = np.asarray(tlen, np.int32)
-    query = np.asarray(query, np.int8)
-    target = np.asarray(target, np.int8)
-    B, Lq = query.shape
-    Bs = -(-B // n)                      # jobs per shard
-    q, e = int(q), int(e)
-    q_pre, e_pre, q2_pre, e2_pre = q, e, int(q2), int(e2)
-    lt = ld = off0 = 0
-    if two:
-        q2, e2 = int(q2), int(e2)
-        qe_pre = q + e
-        if q2 + e2 < q + e:
-            q, q2 = q2, q
-            e, e2 = e2, e
-        lt, ld = long_params(q, e, q2, e2)
-        off0 = (q + e) - qe_pre
-    matf = np.asarray(mat, dtype=np.int8).reshape(-1)
-    eN = e2 if two else e
-    sc_N = -eN if int(matf[m * m - 1]) == 0 else int(matf[m * m - 1])
-    S0, tlenp, _ = _strips_plan(B, Lq, qlen, tlen)
-    S, Bp = _plan_rows(Bs, S0, tlenp)
-    t_real = tlenp + S - 1
-    t_pad = round_up(t_real + 1, 128)
-    generic = bool(flag & Flag.GENERIC_SC)
-    prm = StripParams(
-        n_rows=Bp * S, s=S, tv=tlenp, t_pad=t_pad, t_real=t_real, m=m,
-        q=q, e=e, mat0=int(matf[0]), sc_mis=int(matf[1]), sc_N=sc_N,
-        zdrop=int(zdrop), flag=int(flag),
-        matt=tuple(int(v) for v in matf) if generic else (),
-        two=int(two), q2=int(q2), e2=int(e2), lt=lt, ld=ld, off0=off0,
-        cig=1)
-    qpad = np.zeros((n * Bp, S * 128), np.int8)
-    tpad = np.zeros((n * Bp, tlenp), np.int8)
-    lens = np.zeros((2, n * Bp), np.int32)
-    for k in range(n):
-        i0, i1 = k * Bs, min((k + 1) * Bs, B)
-        if i1 <= i0:
-            continue
-        o = k * Bp
-        qpad[o:o + i1 - i0, :min(Lq, S * 128)] = query[i0:i1, :S * 128]
-        tpad[o:o + i1 - i0, :min(target.shape[1], tlenp)] = \
-            target[i0:i1, :tlenp]
-        lens[0, o:o + i1 - i0] = qlen[i0:i1]
-        lens[1, o:o + i1 - i0] = tlen[i0:i1]
-    fn = _cached_shard_cigar(mesh, prm, Bp, int(end_bonus),
-                             bool(interpret))
-    flat = np.asarray(fn(jnp.asarray(pack_bases(qpad)),
-                         jnp.asarray(pack_bases(tpad)),
-                         jnp.asarray(lens[0]), jnp.asarray(lens[1])))
-    L = _flat_len(prm, Bp)
-    out = []
-    for k in range(n):
-        i0, i1 = k * Bs, min((k + 1) * Bs, B)
-        if i1 <= i0:
-            break
-
-        def rewalk(p, i0=i0):
-            gi = i0 + p
-            sub = strips_cigar_align(
-                query[gi:gi + 1], target[gi:gi + 1], qlen[gi:gi + 1],
-                tlen[gi:gi + 1], m, matf, q_pre, e_pre, zdrop=zdrop,
-                end_bonus=end_bonus, flag=flag, interpret=interpret,
-                two=two, q2=q2_pre, e2=e2_pre)
-            return sub[0].cigar
-
-        ezs = unpack_cigar_flat(flat[k * L:(k + 1) * L], prm, Bp, matf,
-                                int(end_bonus), flag, rewalk)
-        out.extend(ezs[:i1 - i0])
-    return out
-
-
-def make_sharded_run_fn(mesh: Mesh):
-    """Scheduler hook: ``run_fn(spec, Q, T, qlen, tlen, w)`` sharded.
-
-    Pads each bucket's batch up to a multiple of the mesh size (padded
-    pairs carry qlen = tlen = 1, scored and discarded), runs the SAME
-    engine the local scheduler would pick — the strip-tiled engine for
-    effectively-unbanded score-only buckets (via
-    :func:`sharded_strips_records`), the XLA scan engine otherwise —
-    and slices the records back.  Plug into
-    ``align_batch_scores(..., run_fn=make_sharded_run_fn(mesh))`` for a
-    mesh-wide mixed-length workload with the same single-fetch pipeline.
-    """
-    from ..core.flags import Flag
-    from ..core.matrix import simple_mat
-    from ..ops.wavefront_strips import strips_eligible
-
-    n = mesh.devices.size
-
-    def run_fn(spec, Q, T, qlen, tlen, w):
-        flag = Flag(int(spec.flag))
-        # sc_N == -e pins that the spec came from a simple matrix (last
-        # row/col zero), which is what the reconstruction below rebuilds
-        if not (flag & Flag.GENERIC_SC) and spec.sc_N == -spec.e:
-            qlen_h = np.asarray(qlen)
-            tlen_h = np.asarray(tlen)
-            w_h = np.asarray(w)
-            mat = simple_mat(spec.m, spec.sc_mch, spec.sc_mis)
-            if strips_eligible(qlen_h, tlen_h, w_h, flag, spec.m, mat,
-                               spec.zdrop, spec.q, spec.e):
-                rec = sharded_strips_records(
-                    mesh, np.asarray(Q), np.asarray(T), qlen_h, tlen_h,
-                    spec.m, mat, spec.q, spec.e, zdrop=spec.zdrop,
-                    flag=flag)
-                return {k: rec[:, i] for i, k in enumerate(_FIELDS)}
-        B = Q.shape[0]
-        Bp = -(-B // n) * n
-        if Bp != B:
-            pad = Bp - B
-            Q = jnp.pad(Q, ((0, pad), (0, 0)))
-            T = jnp.pad(T, ((0, pad), (0, 0)))
-            one = jnp.ones((pad,), qlen.dtype)
-            qlen = jnp.concatenate([qlen, one])
-            tlen = jnp.concatenate([tlen, one])
-            w = jnp.concatenate([w, one])
-        out = sharded_extz_scores(mesh, spec, Q, T, qlen, tlen, w)
-        if Bp != B:
-            out = {k: (v[:B] if getattr(v, "ndim", 0) == 1 else v)
-                   for k, v in out.items()}
-        return out
-
-    return run_fn
-
-
-@functools.lru_cache(maxsize=256)
-def _cached_shard_pipe(mesh: Mesh, pipe):
-    """Build-once shard_map wrapper for a CIGAR pipeline (cached for the
-    same retrace/recompile reason as :func:`_cached_shard_records`)."""
-    axis = mesh.axis_names[0]
-    return jax.jit(shard_map(
-        pipe, mesh=mesh,
-        in_specs=(P(axis), P(axis), P(axis), P(axis), P(axis)),
-        out_specs=P(axis), check_rep=False,
-    ))
-
-
-def sharded_extz_align(mesh: Mesh, query, target, qlen, tlen, m, mat,
-                       q: int, e: int, w=None, zdrop: int = -1,
-                       end_bonus: int = 0, flag=None,
-                       interpret: Optional[bool] = None):
-    """Batched one-piece extension WITH CIGARs, batch-sharded over a mesh.
-
-    Each shard runs the full on-device CIGAR pipeline (forward wavefront
-    -> start-cell selection -> banded walker -> RLE pack,
-    ``ops.batch_pallas._cached_cigar_pipeline``) on its own pairs; only
-    the packed record slab crosses shard boundaries (XLA all-gathers it
-    on fetch).  Returns a list of ``ExtzResult`` with CIGARs, byte-equal
-    to the local :func:`ops.batch_pallas.extz_batch_align`.
-
-    Pairs pad to ``n_shards * Bp`` rows with zero-length jobs; targets
-    must fit the batched CIGAR engine (Lt <= 1536).  A pair whose packed
-    runs overflow the device compaction falls back to the local engine
-    (same policy as the scheduler's synchronous path).
-    """
-    from ..core.flags import Flag
-    from ..ops.batch_pallas import (NFIELDS_REC, _cached_cigar_pipeline,
-                                    _cigar_batch_finish, extz_batch_align)
-    from ..ops.bands import pad_rows, round_up
-    from ..ops import wavefront_batch as wb
-
-    flag = Flag(int(Flag.NONE if flag is None else flag))
-    if flag & Flag.SCORE_ONLY:
-        raise ValueError("use sharded_extz_scores for score-only batches")
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    query = np.asarray(query)
-    target = np.asarray(target)
-    B, Lq = query.shape
-    Lt = target.shape[1]
-    assert Lt <= 1536, "sharded CIGAR batches require Lt <= 1536"
-    P_ = (Lt + 127) // 128
-    qlen = np.asarray(qlen, np.int32)
-    tlen = np.asarray(tlen, np.int32)
-    if w is None:
-        w = np.maximum(qlen, tlen)
-    w = np.asarray(w, np.int32)
-    mat = np.asarray(mat, dtype=np.int8).reshape(-1)
-    min_sc = int(mat[1:].min())
-    if -min_sc > 2 * (q + e):
-        from ..core.result import ExtzResult
-        out = []
-        for _ in range(B):
-            ez = ExtzResult()
-            ez.reset()
-            out.append(ez)
-        return out
-
-    n = mesh.devices.size
-    Bp = pad_rows(-(-B // n), P_)
-    Btot = n * Bp
-    qpad = np.zeros((Btot, Lq), np.int8)
-    qpad[:B] = query.astype(np.int8)
-    tpad = np.zeros((Btot, Lt), np.int8)
-    tpad[:B] = target.astype(np.int8)
-    lens = np.zeros((3, Btot), np.int32)
-    lens[0, :B], lens[1, :B], lens[2, :B] = qlen, tlen, w
-
-    sc_N = -e if int(mat[m * m - 1]) == 0 else int(mat[m * m - 1])
-    n_diag = int((qlen + tlen).max()) - 1 if B else 1
-    n_diag = max(round_up(n_diag, 32), 32)
-    prm = wb.BatchParams(
-        n_rows=Bp * P_, n_diag=n_diag, m=m,
-        sc_mch=int(mat[0]), sc_mis=int(mat[1]), sc_N=sc_N,
-        q=int(q), e=int(e), zdrop=int(zdrop), flag=int(flag), chunk=32,
-        p=P_,
-        matt=tuple(int(v) for v in mat) if flag & Flag.GENERIC_SC else (),
-    )
-    rmax = max(int((lens[0] + lens[1]).max()) - 2, 0)
-    rmax_round = -(-(rmax + 1) // 1024) * 1024
-    pipe, MAXR = _cached_cigar_pipeline(prm, Bp, int(flag), int(end_bonus),
-                                        rmax_round, interpret)
-
-    run = _cached_shard_pipe(mesh, pipe)
-    fetched = np.asarray(run(jnp.asarray(qpad), jnp.asarray(tpad),
-                             jnp.asarray(lens[0]), jnp.asarray(lens[1]),
-                             jnp.asarray(lens[2])))
-    out = _cigar_batch_finish(fetched[:B], MAXR, B, query, target, qlen,
-                              tlen, flag, end_bonus)
-    if out is None:
-        # a pair overflowed the device RLE compaction: local fallback
-        # (carries the full-fetch walker)
-        return extz_batch_align(query, target, qlen, tlen, m, mat, q, e,
-                                w, zdrop, end_bonus, flag,
-                                interpret=interpret)
-    return out
-
-
-def scaling_efficiency(n_devices: int, B_per_dev: int = 64, L: int = 128,
-                       reps: int = 3):
-    """Measure batch-sharded pairs/s at 1 vs n devices on this host.
-
-    Returns ``(t1, tn, efficiency)`` where efficiency = t1 / (tn * n).
-    On a virtual CPU mesh the devices share host cores, so the number is
-    a weak lower bound; on a real TPU slice it measures ICI scaling of
-    the production batch path end-to-end (records gathered per step).
-    """
-    import time
-
-    B = B_per_dev * n_devices
-    rng = np.random.default_rng(0)
-    Q = rng.integers(0, 4, size=(B, L)).astype(np.int32)
-    T = np.where(rng.random((B, L)) < 0.1,
-                 rng.integers(0, 4, size=(B, L)), Q).astype(np.int32)
-    ql = jnp.full((B,), L, jnp.int32)
-    spec = BatchSpec(Lq=L, Lt=L, m=5, sc_mch=2, sc_mis=-4, sc_N=-2,
-                     q=4, e=2, zdrop=200, flag=1)
-    Qd, Td = jnp.asarray(Q), jnp.asarray(T)
-
-    def timed(mesh):
-        out = sharded_extz_scores(mesh, spec, Qd, Td, ql, ql, ql)
-        jax.block_until_ready(out["max"])          # compile + warm
-        best = None
-        for _ in range(reps):
-            t0 = time.time()
-            out = sharded_extz_scores(mesh, spec, Qd, Td, ql, ql, ql)
-            jax.block_until_ready(out["max"])
-            dt = time.time() - t0
-            best = dt if best is None else min(best, dt)
-        return best, int(np.asarray(out["max"]).sum())
-
-    t1, sum1 = timed(make_mesh(1))
-    tn, sumn = timed(make_mesh(n_devices))
-    assert sum1 == sumn, (sum1, sumn)              # sharding-invariant
-    return t1, tn, t1 / (tn * n_devices)
+__all__ = ["init_distributed", "make_mesh", "shard_batch"]

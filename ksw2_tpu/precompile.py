@@ -1,22 +1,23 @@
-"""AOT-precompile the standard kernel ladder into the persistent cache.
+"""AOT-precompile the standard bucket ladder into the persistent cache.
 
 The reference's kalloc contract is zero per-call setup cost across millions
 of alignment calls (kalloc.c:41-62).  The analogue here has two layers:
 
-1. in-process: every kernel builder is lru-cached, so a shape compiles once;
+1. in-process: every launch program is cached per bucket shape, so a shape
+   compiles once (the scoring costs are runtime values and never force a
+   recompile);
 2. cross-process: the persistent JAX compilation cache
-   (:mod:`ksw2_tpu.utils.ccache`) makes later processes load executables in
-   milliseconds instead of 20-40 s compiles.
+   (:mod:`ksw2_tpu.utils.ccache`) makes later processes load programs
+   instead of compiling them.
 
 This module fills layer 2 ahead of time: ``python -m ksw2_tpu.precompile``
-compiles the standard bucket ladder (the shapes the scheduler produces for
-common read-length mixes, plus the long-pair band engines) so a production
-deployment's first real workload starts hot.  Run it once per machine /
-cache directory; reruns are fast (cache hits).
+compiles the launch programs the scheduler produces for square buckets of
+the length ladder (one-piece and two-piece, scores and CIGARs), so a
+deployment's first real workload starts hot.  Reruns are cache hits.
 
 Usage::
 
-    python -m ksw2_tpu.precompile [--quick] [--scores A,B,O,E]
+    python -m ksw2_tpu.precompile [--max-len 3072] [--batch 512]
 """
 from __future__ import annotations
 
@@ -27,101 +28,38 @@ import time
 import numpy as np
 
 
-def _ladder(quick: bool):
-    """(Lq, Lt) bucket shapes of the standard short-read ladder (matches
-    the scheduler's score-path ladder, scheduler._SCORES_LT)."""
-    lts = [128, 256, 512, 1024, 1536] if quick else \
-        [128, 256, 512, 768, 1024, 1280, 1536, 2048, 2560, 3072]
-    return [(min(max(lt * 2, 512), 4608), lt) for lt in lts]
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--quick", action="store_true",
-                    help="core shapes only (~5 compiles)")
-    ap.add_argument("--scores", default="2,4,4,2",
-                    help="A,B,O,E simple costs to specialize [2,4,4,2]")
+    ap.add_argument("--max-len", type=int, default=3072,
+                    help="largest bucket length to warm [3072]")
+    ap.add_argument("--batch", type=int, default=512,
+                    help="jobs per bucket (sets the launch batch) [512]")
     args = ap.parse_args(argv)
 
+    from .batch.scheduler import (AlignJob, bucket_len, launch_program,
+                                  plan_launches)
     from .core.flags import Flag
     from .core.matrix import simple_mat
-    from .ops.batch_pallas import extd_batch_device, extz_batch_records
-    from .ops.wavefront_strips import _canon_s, _canon_tlenp, _launch_bmax
 
-    a, b, q, e = (int(v) for v in args.scores.split(","))
-    mat = simple_mat(5, a, -b)
+    mat = simple_mat(5, 2, 4)
+    lengths = sorted({bucket_len(n) for n in range(64, args.max_len + 1, 16)})
     t_start = time.time()
     n = 0
-    rng = np.random.default_rng(0)
-    for Lq, Lt in _ladder(args.quick):
-        # warm the exact engine+shape the scheduler dispatches for this
-        # bucket: extz_batch_records routes through strips/rows/wavefront
-        # with the same eligibility logic as production, at the
-        # full-launch pair count (what BMAX slicing produces)
-        S0 = _canon_s(max(1, (Lq + 127) // 128))
-        B = min(max(8, _launch_bmax(S0, _canon_tlenp(Lt))), 256)
-        Q = rng.integers(0, 4, size=(B, Lq)).astype(np.int8)
-        T = rng.integers(0, 4, size=(B, Lt)).astype(np.int8)
-        ql = np.full((B,), Lq, np.int32)
-        tl = np.full((B,), Lt, np.int32)
-        w = np.maximum(ql, tl)
-        t0 = time.time()
-        ps = extz_batch_records(Q, T, ql, tl, 5, mat, q, e, w, zdrop=200,
-                                flag=Flag.SCORE_ONLY)
-        for p in ps:
-            np.asarray(p)
-        n += 1
-        print(f"  extz bucket ({Lq},{Lt},B={B}): {time.time()-t0:.1f}s",
-              file=sys.stderr)
-        if not args.quick:
-            t0 = time.time()
-            extd_batch_device(Q, T, ql, tl, 5, mat, q, e, 13, 1, w,
-                              zdrop=200, flag=Flag.SCORE_ONLY)
-            n += 1
-            print(f"  extd bucket ({Lq},{Lt}): {time.time()-t0:.1f}s",
-                  file=sys.stderr)
-
-    if not args.quick:
-        # fused strips-CIGAR single-launch programs (the production
-        # CIGAR route; round-5): one short, one mid, one whale-shaped
-        # bucket for each gap model
-        from .ops.strips_walker import strips_cigar_batch
-
-        for Lq2, Lt2, Bc in ((512, 512, 64), (1536, 1536, 24),
-                             (3072, 3072, 17)):
-            Qc = rng.integers(0, 4, size=(Bc, Lq2)).astype(np.int8)
-            Tc = rng.integers(0, 4, size=(Bc, Lt2)).astype(np.int8)
-            qlc = np.full((Bc,), Lq2, np.int32)
-            tlc = np.full((Bc,), Lt2, np.int32)
-            for name, two in (("extz", False), ("extd", True)):
-                t0 = time.time()
-                strips_cigar_batch(Qc, Tc, qlc, tlc, 5, mat, q, e,
-                                   zdrop=200, flag=Flag.NONE, two=two,
-                                   q2=13, e2=1)
-                n += 1
-                print(f"  {name} cigar ({Lq2},{Lt2},B={Bc}): "
-                      f"{time.time()-t0:.1f}s", file=sys.stderr)
-
-        # long banded pairs (minimap2's production shape)
-        from .ops.band_batch import extz_band_batch_device
-
-        B, L = 8, 20000
-        Q = rng.integers(0, 4, size=(B, L)).astype(np.int8)
-        T = rng.integers(0, 4, size=(B, L)).astype(np.int8)
-        ql = np.full((B,), L, np.int32)
-        wv = np.full((B,), 751, np.int32)
-        t0 = time.time()
-        extz_band_batch_device(Q, T, ql, ql, 5, mat, q, e, wv, zdrop=400,
-                               flag=Flag.SCORE_ONLY)
-        n += 1
-        print(f"  band 20k w=751: {time.time()-t0:.1f}s", file=sys.stderr)
-
-    from .utils.stats import format_stats
-    print(format_stats(), file=sys.stderr)
-    print(f"precompiled {n} ladder shapes in {time.time()-t_start:.0f}s; "
-          f"persistent cache is warm", file=sys.stderr)
+    for L in lengths:
+        jobs = [AlignJob(np.zeros(L, np.int8), np.zeros(L, np.int8))] \
+            * args.batch
+        for two in (False, True):
+            for flag in (Flag.SCORE_ONLY, Flag.NONE):
+                launches, _ = plan_launches(
+                    jobs, 5, mat, 4, 2, *((24, 1) if two else (None, None)),
+                    flag=flag)
+                for ln in launches:
+                    launch_program(ln.spec).lower(*ln.args).compile()
+                    n += 1
+        print(f"bucket {L}: {n} programs, {time.time() - t_start:.1f} s",
+              flush=True)
     return 0
 
 
 if __name__ == "__main__":
-    raise SystemExit(main())
+    sys.exit(main())

@@ -14,8 +14,8 @@ gives each stored row's first target/query coordinate and ``off_end``
 (diagonal layout only) the last one.  Outside the stored span the state is
 forced (below: F, above: E) — band-edge clamping.
 
-This is the semantic reference; the production host-side path is the C++
-implementation in :mod:`ksw2_tpu.native` (validated against this).
+This is the semantic reference; the device walk
+(:mod:`ksw2_tpu.ops.traceback`) replays it for the anti-diagonal layout.
 """
 from __future__ import annotations
 
@@ -38,16 +38,8 @@ def backtrack(
     is_rot: bool,
     is_rev: bool = False,
     min_intron_len: int = 0,
-    store_off: Optional[Sequence[int]] = None,
 ) -> List[int]:
-    """Walk from cell ``(i0, j0)`` back to the origin, emitting a CIGAR.
-
-    ``store_off`` overrides the per-row storage offset used for indexing
-    (the TPU kernel stores rows at 128-aligned offsets) while ``off`` /
-    ``off_end`` keep defining the band-edge force conditions.
-    """
-    if store_off is None:
-        store_off = off
+    """Walk from cell ``(i0, j0)`` back to the origin, emitting a CIGAR."""
     p = p.reshape(-1)
 
     def _read(idx: int) -> int:
@@ -68,13 +60,13 @@ def backtrack(
                 force_state = 2
             if off_end is not None and i > off_end[r]:
                 force_state = 1
-            tmp = _read(r * n_col + i - store_off[r]) if force_state < 0 else 0
+            tmp = _read(r * n_col + i - off[r]) if force_state < 0 else 0
         else:
             if j < off[i]:
                 force_state = 2
             if off_end is not None and j > off_end[i]:
                 force_state = 1
-            tmp = _read(i * n_col + j - store_off[i]) if force_state < 0 else 0
+            tmp = _read(i * n_col + j - off[i]) if force_state < 0 else 0
         if state == 0:
             state = tmp & 7  # at an H cell: take whichever state won the max
         elif not (tmp >> (state + 2)) & 1:

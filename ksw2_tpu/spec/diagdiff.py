@@ -9,8 +9,8 @@ of the reference's SIMD kernels (SSE4.1 code paths):
 * :func:`extf2`  — ``ksw_extf2_sse``  (linear-gap fast extension, score only)
 * :func:`gg2_sse`/:func:`gg2` — global alignment via the difference recurrence
 
-They are *specs*, not the production path: the Pallas TPU kernels in
-:mod:`ksw2_tpu.ops` are validated cell-for-cell against these, and these are
+They are *specs*, not the production path: the batched device engines in
+:mod:`ksw2_tpu.ops` (extz2/extd2) are validated against these, and these are
 validated against golden outputs of the compiled reference binary.
 
 Key replicated behaviors (all observable):
@@ -22,7 +22,7 @@ Key replicated behaviors (all observable):
   (``ksw2_extz2_sse.c:107-116``).  The rounded-out lanes compute garbage that
   is deterministic (zero/const-initialised arrays) and can be observed
   through band-edge boundary reads and the traceback matrix, so the rounding
-  is replicated exactly rather than widened to the TPU's 128 lanes.
+  is replicated exactly rather than widened to a device's vector width.
 * The int32 exact-max scan with its 4-lane argmax tie order
   (:func:`ksw2_tpu.spec.common.exact_max_scan`), or the O(1) approximate-max
   walk under ``Flag.APPROX_MAX``.

@@ -2,66 +2,37 @@
 
 The reference's arena exists so a million alignment calls pay no per-call
 allocation cost (kalloc.c:41-62).  Here the per-process setup cost is XLA
-kernel compilation (20-40 s per shape variant); the persistent JAX
-compilation cache makes every later process load compiled executables in
-milliseconds.  ``ensure_compile_cache`` is called by every kernel-builder
-the first time it compiles anything, so library users get it without
-configuration; set ``KSW2_TPU_CCACHE`` to move the directory or
-``KSW2_TPU_NO_CCACHE=1`` to disable.
+compilation, one program per bucket shape; JAX's persistent compilation
+cache lets a later process load them instead.
+
+Where ``JAX_COMPILATION_CACHE_DIR`` is set, JAX uses that directory and
+this module sets nothing.  Otherwise the cache lives at one fixed path
+inside the checkout, :data:`CACHE_DIR` (listed in ``.gitignore``).  Runs
+forced onto the CPU keep no cache: XLA:CPU entries are specific to the
+host's instruction set.
 """
 from __future__ import annotations
 
 import os
 
-_done = False
+CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__)))), ".jax_cache")
+
+
+def _platforms() -> str:
+    import jax
+
+    return str(jax.config.jax_platforms or "").strip().lower()
 
 
 def ensure_compile_cache() -> None:
-    global _done
-    if _done or os.environ.get("KSW2_TPU_NO_CCACHE") == "1":
-        _done = True
+    if os.environ.get("JAX_COMPILATION_CACHE_DIR") or _platforms() == "cpu":
         return
-    if os.environ.get("JAX_PLATFORMS", "").strip().lower() == "cpu":
-        # XLA:CPU AOT cache entries are machine-feature-specific (reloading
-        # on a different host risks SIGILL); the cache's value is TPU
-        # kernel reuse, so skip it for forced-CPU runs (tests, dryruns)
-        _done = True
-        return
-    _done = True
-    try:
-        import jax
+    import jax
 
-        # some callers force CPU via jax.config rather than the env var
-        # (bench.py parity preflight, tests/final_fuzz.py); the SIGILL
-        # rationale above applies to them equally
-        plats = getattr(jax.config, "jax_platforms", None) or ""
-        if str(plats).strip().lower() == "cpu":
-            return
-
-        cache = os.environ.get("KSW2_TPU_CCACHE")
-        if cache is None:
-            # per-user default (a world-shared /tmp path could be poisoned
-            # or permission-collide on multi-user hosts)
-            cache = os.path.join(os.path.expanduser("~"), ".cache",
-                                 "ksw2_tpu", "jax_ccache")
-        os.makedirs(cache, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", cache)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0)
-        # Mosaic payloads embed op tracebacks; a jax-internal sub-jaxpr
-        # cache can splice another kernel's frames into this one's
-        # module, so the SAME workload hashes to different persistent
-        # keys depending on what compiled earlier in the process.
-        # Stripping tracebacks/source files from locations removes the
-        # string-level instability (a small structural residue remains;
-        # identical fresh processes still produce identical keys, so
-        # steady-state restarts always hit).
-        jax.config.update("jax_include_full_tracebacks_in_locations",
-                          False)
-        jax.config.update("jax_traceback_in_locations_limit", 0)
-        jax.config.update("jax_hlo_source_file_canonicalization_regex",
-                          ".*")
-    except Exception:
-        pass                                   # never break the caller
+    jax.config.update("jax_compilation_cache_dir", CACHE_DIR)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0)
 
 
-__all__ = ["ensure_compile_cache"]
+__all__ = ["CACHE_DIR", "ensure_compile_cache"]

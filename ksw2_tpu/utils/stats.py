@@ -6,7 +6,7 @@ alignment calls is doing (``kalloc.c:191-214``).  This framework's arena is
 the *compile cache* — one XLA program per bucket shape, device buffers
 recycled by the runtime — so the equivalent report is: how many kernel
 variants each engine family has compiled (hits/misses of every shape
-bucket), plus the chip's live memory counters.
+bucket), plus the device's live memory counters.
 
 ``engine_stats()`` returns the numbers; ``format_stats()`` renders the
 stderr-style report like ``km_stat`` does.
@@ -21,12 +21,8 @@ def _iter_caches():
     """Yield (name, lru-cached fn) for every kernel-builder cache."""
     import importlib
 
-    mods = [
-        "ksw2_tpu.ops.extz", "ksw2_tpu.ops.extd", "ksw2_tpu.ops.exts",
-        "ksw2_tpu.ops.extf", "ksw2_tpu.ops.gg2", "ksw2_tpu.ops.batch_pallas",
-        "ksw2_tpu.ops.band_batch", "ksw2_tpu.ops.batch_local",
-        "ksw2_tpu.parallel.halo",
-    ]
+    mods = ["ksw2_tpu.batch.scheduler", "ksw2_tpu.parallel.mesh",
+            "ksw2_tpu.parallel.halo"]
     seen = set()                 # dedupe re-exported builders on identity
     for name in mods:
         if name not in sys.modules:

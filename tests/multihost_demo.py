@@ -31,19 +31,21 @@ import jax.numpy as jnp  # noqa: E402
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P  # noqa: E402
 
 from ksw2_tpu.core.flags import Flag  # noqa: E402
-from ksw2_tpu.ops.batch_xla import BatchSpec, extz_batch_scores  # noqa: E402
-from ksw2_tpu.parallel.mesh import sharded_extz_scores  # noqa: E402
+from ksw2_tpu.core.matrix import simple_mat  # noqa: E402
+from ksw2_tpu.ops.batch_xla import BatchSpec, make_params  # noqa: E402
+from ksw2_tpu.batch.scheduler import launch_program  # noqa: E402
 
 rng = np.random.default_rng(0)          # same data on every process
 B, L = 16, 64
-Q = rng.integers(0, 4, size=(B, L)).astype(np.int32)
+Q = rng.integers(0, 4, size=(B, L)).astype(np.int8)
 T = np.where(rng.random((B, L)) < 0.15,
-             rng.integers(0, 4, size=(B, L)), Q).astype(np.int32)
+             rng.integers(0, 4, size=(B, L)), Q).astype(np.int8)
 qlen = np.full(B, L, np.int32)
 tlen = np.full(B, L, np.int32)
 w = np.full(B, L, np.int32)
-spec = BatchSpec(Lq=L, Lt=L, m=5, sc_mch=2, sc_mis=-4, sc_N=-2,
-                 q=4, e=2, zdrop=100, flag=int(Flag.SCORE_ONLY))
+spec = BatchSpec(Lq=L, Lt=L, two=False, flag=int(Flag.SCORE_ONLY), nc=0)
+mat = simple_mat(5, 2, 4)
+prm = make_params(5, mat, 4, 2, zdrop=100)
 
 mesh = Mesh(np.array(jax.devices()), ("data",))
 shard = NamedSharding(mesh, P("data"))
@@ -63,10 +65,11 @@ def to_global(x):
 
 
 args = tuple(to_global(a) for a in (Q, T, qlen, tlen, w))
-out = sharded_extz_scores(mesh, spec, *args)
+rec, = launch_program(spec, mesh)(*args, mat, prm)
 # reduce to a replicated scalar so every process can read it (the gather
 # itself is the ICI/DCN collective under test)
-total = jax.jit(jnp.sum, out_shardings=NamedSharding(mesh, P()))(out["score"])
+total = jax.jit(lambda r: jnp.sum(r[:, 7]),
+                out_shardings=NamedSharding(mesh, P()))(rec)
 checksum = int(jax.device_get(total))
 print(f"OK {proc_id} {checksum}", flush=True)
 

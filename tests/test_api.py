@@ -51,7 +51,7 @@ def test_generic_matrix_autodetected():
     assert (ez.score, ez.cigar) == (want.score, want.cigar)
 
 
-def test_extend_batch_and_global():
+def test_extend_batch_matches_spec():
     rng = np.random.default_rng(5)
     pairs = [_pair(10 + i, L=int(rng.integers(40, 120))) for i in range(9)]
     aln = Aligner(a=2, b=4, q=4, e=2, zdrop=100, flag=Flag.SCORE_ONLY)
@@ -62,84 +62,35 @@ def test_extend_batch_and_global():
                                  zdrop=100, flag=Flag.SCORE_ONLY)
         assert ez.max == want.max and ez.score == want.score
 
-    q, t = pairs[0]
-    g = Aligner(a=2, b=4, q=4, e=2).global_align(q, t)
-    from ksw2_tpu.spec.diagdiff import gg2_sse
-    score, cig, _ = gg2_sse(q, t, 5, simple_mat(5, 2, -4), 4, 2)
-    assert (g.score, g.cigar) == (score, cig)
 
-
-def test_splice_mode():
-    rng = np.random.default_rng(6)
-    t = rng.integers(0, 4, 200).astype(np.int32)
-    t[60:62] = (2, 3)
-    t[139:141] = (0, 2)
-    q = np.concatenate([t[20:60], t[141:180]]).astype(np.int32)
-    aln = Aligner(a=1, b=2, q=2, e=1, q2=32, splice=True, noncan=9,
-                  zdrop=200)
-    ez = aln.extend(q, t)
-    want, _ = diagdiff.exts2(q, t, 5, simple_mat(5, 1, -2), 2, 1, 32, 9,
-                             zdrop=200)
-    assert (ez.score, ez.cigar) == (want.score, want.cigar)
+def test_extend_batch_per_pair_bands():
+    """``w`` gives each pair its own band inside one batch."""
+    pairs = [_pair(40 + i, L=100, div=0.2) for i in range(6)]
+    bands = [3, 10, 25, 60, -1, 0]
+    aln = Aligner(a=2, b=4, q=4, e=2, q2=13, e2=1, zdrop=80)
+    for (q, t), w, ez in zip(pairs, bands, aln.extend_batch(pairs, w=bands)):
+        want, _ = diagdiff.extd2(q, t, 5, simple_mat(5, 2, -4), 4, 2, 13, 1,
+                                 w=w, zdrop=80)
+        assert ez == want, w
 
 
 def test_bad_params_raise():
     with pytest.raises(ValueError):
         Aligner(q2=13)          # two-piece needs both q2 and e2
     with pytest.raises(ValueError):
-        Aligner(splice=True)    # splice needs q2
+        Aligner(e2=1)
 
 
-def test_run_fn_guard_raises():
-    """run_fn is only valid for one-piece SCORE_ONLY configurations; any
-    other combination must fail loudly, never silently return extz-cost
-    scores (ADVICE r2: api.py run_fn routing)."""
-    pairs = [_pair(30)]
-    fake_run = object()
-    with pytest.raises(ValueError):   # two-piece cost model
-        Aligner(q2=13, e2=1, flag=Flag.SCORE_ONLY).extend_batch(
-            pairs, run_fn=fake_run)
-    with pytest.raises(ValueError):   # CIGARs requested
-        Aligner().extend_batch(pairs, run_fn=fake_run)
-    with pytest.raises(ValueError):   # splice cost model
-        Aligner(q2=32, splice=True, flag=Flag.SCORE_ONLY).extend_batch(
-            pairs, run_fn=fake_run)
-    with pytest.raises(ValueError):   # juncs without splice
-        Aligner(flag=Flag.SCORE_ONLY).extend_batch(
-            pairs, juncs=[np.zeros(90, np.uint8)])
-
-
-def test_global_align_full_ez_contract():
-    """global_align fills every ksw_extz_t field from the global corner
-    (the reference gg calls return a bare int, ksw2.h:85-92)."""
-    q, t = _pair(7, L=80)
-    ez = Aligner(a=2, b=4, q=4, e=2).global_align(q, t)
-    assert ez.max == ez.score and ez.mqe == ez.score and ez.mte == ez.score
-    assert (ez.max_t, ez.max_q) == (len(t) - 1, len(q) - 1)
-    assert (ez.mqe_t, ez.mte_q) == (len(t) - 1, len(q) - 1)
-    assert ez.reach_end and not ez.zdropped
-
-
-def test_extend_batch_juncs_matches_single():
-    """Batch splice jobs with junction tracks must score like the
-    per-pair extend(junc=...) calls (ADVICE r2: juncs plumbing)."""
-    rng = np.random.default_rng(8)
-    aln = Aligner(a=1, b=2, q=2, e=1, q2=32, splice=True, noncan=9,
-                  junc_bonus=7, zdrop=200)
-    pairs, juncs = [], []
-    for i in range(5):
-        t = rng.integers(0, 4, int(rng.integers(80, 180))).astype(np.int32)
-        q = t[10:-10].copy()
-        pairs.append((q, t))
-        if i % 2 == 0:
-            juncs.append(rng.integers(0, 16, len(t)).astype(np.uint8))
-        else:
-            juncs.append(None)
-    ezs = aln.extend_batch(pairs, juncs=juncs)
-    for (q, t), jn, ez in zip(pairs, juncs, ezs):
-        want = aln.extend(q, t, junc=jn)
-        assert (ez.score, ez.max, ez.cigar) == (want.score, want.max,
-                                                want.cigar)
+def test_result_array_matches_results():
+    """``extend_batch_async(...).result_array()`` carries the same records
+    as the per-job results, reset rows for empty jobs included."""
+    pairs = [("", "ACGT")] + [_pair(70 + i, L=80) for i in range(4)]
+    aln = Aligner(zdrop=100, flag=Flag.SCORE_ONLY)
+    want = aln.extend_batch(pairs)
+    arr = aln.extend_batch_async(pairs).result_array()
+    for row, ez in zip(arr, want):
+        assert tuple(row) == (ez.max, ez.max_t, ez.max_q, ez.mqe, ez.mqe_t,
+                              ez.mte, ez.mte_q, ez.score, int(ez.zdropped))
 
 
 def test_extend_batch_mesh_cigars_match_local():
@@ -163,23 +114,26 @@ def test_extend_batch_mesh_cigars_match_local():
         assert a_.cigar == b_.cigar, i
 
 
-def test_extend_batch_mesh_guards():
-    import pytest
-    from ksw2_tpu.api import Aligner
+def test_extend_batch_mesh_two_piece_matches_local():
+    """Two-piece CIGAR batches shard over the mesh like one-piece ones."""
+    import refcmp
     from ksw2_tpu.parallel.mesh import make_mesh
 
-    mesh = make_mesh(8)
-    with pytest.raises(ValueError):
-        Aligner(a=2, b=4, q=4, e=2, q2=13, e2=1).extend_batch(
-            [("ACGT", "ACGT")], mesh=mesh)
-    with pytest.raises(ValueError):
-        Aligner(a=2, b=4, q=4, e=2).extend_batch(
-            [("ACGT", "ACGT")], mesh=mesh, run_fn=lambda *a: None)
+    rng = np.random.default_rng(24)
+    pairs = []
+    for _ in range(11):
+        tl = int(rng.integers(30, 200))
+        t, q = refcmp.random_pair(rng, tl, divergence=0.2, indel=0.1)
+        pairs.append((q, t))
+    al = Aligner(a=2, b=4, q=4, e=2, q2=24, e2=1, zdrop=200, w=50)
+    sh = al.extend_batch(pairs, mesh=make_mesh(4))
+    lo = al.extend_batch(pairs)
+    assert sh == lo
 
 
 def test_extend_batch_async_matches_sync():
     """Aligner.extend_batch_async handles equal the synchronous path,
-    for plain, two-piece, and splice configurations."""
+    for one-piece and two-piece configurations."""
     import refcmp
     from ksw2_tpu import Aligner
 
@@ -188,8 +142,7 @@ def test_extend_batch_async_matches_sync():
     for L in (150, 300, 520):
         t, q = refcmp.random_pair(rng, L, divergence=0.2, indel=0.08)
         pairs.append((q, t))
-    for kw in ({}, {"q2": 13, "e2": 1},
-               {"splice": True, "q2": 32, "noncan": 9}):
+    for kw in ({}, {"q2": 13, "e2": 1}):
         al = Aligner(zdrop=100, **kw)
         want = al.extend_batch(pairs)
         hs = [al.extend_batch_async(pairs) for _ in range(2)]

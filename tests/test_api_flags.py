@@ -87,19 +87,17 @@ def test_extz_only_end_bonus_vs_reference(algo):
         want, want_cig = _run_driver(
             algo, 4, 2, 13, 1, w, z, eb, int(fl), q, t)
         qs, ts = encode_dna(q), encode_dna(t)
+        from ksw2_tpu.api import Aligner
         if algo == "extz2_sse":
             ez, _ = diagdiff.extz2(qs, ts, 5, mat, 4, 2, w=w, zdrop=z,
                                    end_bonus=eb, flag=fl)
-            from ksw2_tpu.ops.extz import extz2_device
-            ezd, _ = extz2_device(qs, ts, 5, mat, 4, 2, w=w, zdrop=z,
-                                  end_bonus=eb, flag=fl, interpret=True)
+            ezd = Aligner(q=4, e=2, w=w, zdrop=z, end_bonus=eb,
+                          flag=fl).extend(qs, ts)
         else:
             ez, _ = diagdiff.extd2(qs, ts, 5, mat, 4, 2, 13, 1, w=w,
                                    zdrop=z, end_bonus=eb, flag=fl)
-            from ksw2_tpu.ops.extd import extd2_device
-            ezd, _ = extd2_device(qs, ts, 5, mat, 4, 2, 13, 1, w=w,
-                                  zdrop=z, end_bonus=eb, flag=fl,
-                                  interpret=True)
+            ezd = Aligner(q=4, e=2, q2=13, e2=1, w=w, zdrop=z, end_bonus=eb,
+                          flag=fl).extend(qs, ts)
         for impl, e_ in (("spec", ez), ("device", ezd)):
             got = dict(max=e_.max, zdropped=int(e_.zdropped),
                        max_q=e_.max_q, max_t=e_.max_t, mqe=e_.mqe,
@@ -112,58 +110,6 @@ def test_extz_only_end_bonus_vs_reference(algo):
                                                 want_cig)
         n_reach += want["reach_end"]
     assert n_reach > 0, "no case exercised reach_end; fuzz shape too weak"
-
-
-@pytest.mark.skipif(not _build_driver(),
-                    reason="reference sources/gcc unavailable")
-def test_exts_junc_bonus_vs_reference():
-    """junc[] annotation tracks + SPLICE flag combos vs the real library.
-
-    The reference CLI cannot pass junc[] (or choose splice flags), so
-    this was spec-validated only until now.
-    """
-    rng = np.random.default_rng(1357)
-    mat = simple_mat(5, 2, -4)
-    from ksw2_tpu.ops.exts import exts2_device
-
-    for trial in range(8):
-        tlen = int(rng.integers(30, 120))
-        t, q = refcmp.random_pair(rng, tlen, 0.15, 0.05)
-        fl = Flag.NONE
-        r = rng.random()
-        if r < 0.45:
-            fl |= Flag.SPLICE_FOR
-        elif r < 0.7:
-            fl |= Flag.SPLICE_REV
-        else:
-            fl |= Flag.SPLICE_FOR | Flag.SPLICE_REV
-        if rng.random() < 0.5:
-            fl |= Flag.SPLICE_FLANK
-        junc_hex = None
-        junc = None
-        jb = 0
-        if rng.random() < 0.7:
-            junc = rng.integers(0, 16, size=len(t)).astype(np.uint8)
-            junc_hex = "".join("0123456789abcdef"[v] for v in junc)
-            jb = int(rng.integers(1, 15))
-        noncan = int(rng.integers(0, 12))
-        want, want_cig = _run_driver(
-            "exts2_sse", 4, 2, 24, noncan, -1, -1, jb, int(fl), q, t,
-            junc_hex)
-        qs, ts = encode_dna(q), encode_dna(t)
-        ez, _ = diagdiff.exts2(qs, ts, 5, mat, 4, 2, 24, noncan,
-                               junc_bonus=jb, flag=fl, junc=junc)
-        ezd, _ = exts2_device(qs, ts, 5, mat, 4, 2, 24, noncan,
-                              junc_bonus=jb, flag=fl, junc=junc,
-                              interpret=True)
-        for impl, e_ in (("spec", ez), ("device", ezd)):
-            got = dict(max=e_.max, zdropped=int(e_.zdropped),
-                       max_q=e_.max_q, max_t=e_.max_t, mqe=e_.mqe,
-                       mqe_t=e_.mqe_t, mte=e_.mte, mte_q=e_.mte_q,
-                       score=e_.score, reach_end=int(e_.reach_end))
-            assert got == want, (impl, trial, int(fl), got, want, q, t)
-            assert _cigar_str(e_) == want_cig, (impl, trial,
-                                                _cigar_str(e_), want_cig)
 
 
 @pytest.mark.skipif(not _build_driver(),

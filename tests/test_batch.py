@@ -87,79 +87,38 @@ def test_align_batch_two_piece():
         assert got.tsv_fields() == want.tsv_fields(), i
 
 
-def test_align_batch_splice_matches_spec():
-    """Unified splice batch API (exts engine, bucketed)."""
-    import refcmp
-    from ksw2_tpu.batch.scheduler import AlignJob, align_batch_splice
-    from ksw2_tpu.core.flags import Flag
-    from ksw2_tpu.core.matrix import encode_dna, simple_mat
-    from ksw2_tpu.spec import diagdiff
+def test_bucket_ladder():
+    """Lengths and batch sizes round up a x1.5 / x1.33 ladder: padding
+    stays under half a bucket and the number of shapes stays small."""
+    from ksw2_tpu.batch.scheduler import bucket_len
 
-    rng = np.random.default_rng(19)
-    smat = simple_mat(5, 1, -2)
-    jobs = []
-    for _ in range(5):
-        tl = int(rng.integers(30, 400))
-        t, q = refcmp.random_pair(rng, tl, divergence=0.2, indel=0.1)
-        jobs.append(AlignJob(encode_dna(q), encode_dna(t)))
-    ezs = align_batch_splice(jobs, 5, smat, 2, 1, 32, 4, zdrop=60,
-                             flag=Flag.SPLICE_FOR)
-    for j, ez in zip(jobs, ezs):
-        want, _ = diagdiff.exts2(j.query, j.target, 5, smat, 2, 1, 32, 4,
-                                 zdrop=60, junc_bonus=0,
-                                 flag=Flag.SPLICE_FOR)
-        assert ez.tsv_fields() == want.tsv_fields()
+    prev = 0
+    for n in range(1, 20000, 7):
+        b = bucket_len(n)
+        assert b >= n and b < 2 * n + 1
+        assert b >= prev
+        prev = b
+    shapes = {bucket_len(n) for n in range(1, 20000)}
+    assert len(shapes) <= 30, len(shapes)
 
 
-def test_pad_rows_ladder():
-    """Launch row counts quantize (~25% ladder, sublane-aligned) so varying
-    batch sizes reuse compiled programs -- the kalloc no-per-call-setup
-    analogue."""
-    from ksw2_tpu.ops.bands import pad_rows
+def test_bucket_key_policy():
+    """Buckets are square, from the longer side, and every bucketed
+    length is a multiple of the 16-lane band block."""
+    from ksw2_tpu.batch.scheduler import bucket_key, bucket_len
 
-    for P in (1, 2, 3, 4, 8, 12, 24):
-        seen = set()
-        # the engines slice launches at <= 768 rows, so B <= 768/P is the
-        # whole domain pad_rows sees for a given P
-        for B in range(1, max(768 // P, 1) + 1):
-            Bp = pad_rows(B, P)
-            assert Bp >= B and (Bp * P) % 8 == 0
-            # bounded padding waste (small B: sublane alignment forces
-            # R up to lcm(P, 8); the <=64-row rung bounds the rest)
-            assert Bp * P <= max(8 * P, 3 * B * P)
-            assert Bp * P <= -(-B * P // 8) * 8 + max(64, B * P // 3), \
-                (P, B, Bp)
-            seen.add(Bp)
-        # the ladder keeps distinct compiled shapes logarithmic-ish in B
-        assert len(seen) <= 40, (P, len(seen))
-    assert pad_rows(0, 1) == 8                    # empty batch still tiles
-
-
-def test_bucket_len_policy():
-    """Linear 128-steps through the batched range; geometric in BOTH dims
-    once the target leaves it (single-pair shapes each cost a compile)."""
-    from ksw2_tpu.batch.scheduler import _bucket_key, _bucket_len
-
-    assert _bucket_len(1) == 128
-    assert _bucket_len(129) == 256
-    assert _bucket_len(300) == 384        # not 512: odd-P packing
-    assert _bucket_len(1536) == 1536
-    assert _bucket_len(1537) == 1664      # still linear: batched to 3072
-    assert _bucket_len(3072) == 3072
-    assert _bucket_len(3073) == 4096
-    assert _bucket_len(5000) == 6144      # 2048-steps above
-    assert _bucket_len(300, coarse=True) == 512
-    # short target: Lt linear (sets P), Lq coarse (the batched kernels
-    # never loop over the padded query width, so fine Lq steps would only
-    # split launches)
-    assert _bucket_key(300, 400) == (512, 512)
-    assert _bucket_key(100, 400) == (128, 512)
-    # long target: both dims coarsen geometrically
-    assert _bucket_key(300, 5000) == (512, 6144)
+    assert bucket_len(1) == 1 and bucket_len(64) == 64
+    assert bucket_len(65) == 96 and bucket_len(97) == 128
+    assert bucket_len(300) == 384 and bucket_len(3000) == 3072
+    assert bucket_key(300, 400) == (512, 512)
+    assert bucket_key(400, 300) == (512, 512)
+    assert bucket_key(3, 5) == (16, 16)
+    for t in range(1, 5000, 13):
+        assert bucket_key(10, t)[1] % 16 == 0
 
 
 def test_align_batch_scores2_matches_spec():
-    """Two-piece score-only jobs ride the async records pipeline."""
+    """Two-piece score-only jobs through align_batch."""
     import refcmp
     from ksw2_tpu.batch.scheduler import AlignJob, align_batch
     from ksw2_tpu.core.matrix import encode_dna
@@ -211,8 +170,8 @@ def test_align_batch_scores2_async_handles():
     """Several two-piece score batches in flight (the serving shape);
     each handle's results must match the synchronous path."""
     import refcmp
-    from ksw2_tpu.batch.scheduler import (AlignJob, align_batch_scores2,
-                                          align_batch_scores2_async)
+    from ksw2_tpu.batch.scheduler import (AlignJob, align_batch_scores,
+                                          align_batch_scores_async)
     from ksw2_tpu.core.matrix import encode_dna
 
     rng = np.random.default_rng(12)
@@ -221,10 +180,10 @@ def test_align_batch_scores2_async_handles():
     for L in (120, 260, 500, 900):
         t, q = refcmp.random_pair(rng, L, divergence=0.2, indel=0.08)
         jobs.append(AlignJob(query=encode_dna(q), target=encode_dna(t)))
-    want = align_batch_scores2(jobs, 5, mat, 4, 2, 13, 1, zdrop=100,
-                               flag=Flag.SCORE_ONLY)
-    hs = [align_batch_scores2_async(jobs, 5, mat, 4, 2, 13, 1, zdrop=100,
-                                    flag=Flag.SCORE_ONLY)
+    want = align_batch_scores(jobs, 5, mat, 4, 2, 13, 1, zdrop=100,
+                              flag=Flag.SCORE_ONLY)
+    hs = [align_batch_scores_async(jobs, 5, mat, 4, 2, 13, 1, zdrop=100,
+                                   flag=Flag.SCORE_ONLY)
           for _ in range(3)]
     for h in hs:
         got = h.result()
@@ -233,34 +192,61 @@ def test_align_batch_scores2_async_handles():
                 (w.score, w.max, w.max_t, w.max_q, w.zdropped)
 
 
-def test_strips_route_engages():
-    """A refactor must not silently disconnect the strips route: an
-    eligible bucket (score-only, unbanded, 150-600 bp) MUST dispatch
-    through strips_records (round-3 judge finding: no committed test
-    pinned the route)."""
-    from ksw2_tpu.ops import wavefront_strips as ws
+def test_every_bucket_dispatches_through_select_forward():
+    """The scheduler takes its forward from the one selection function,
+    once per bucket, and runs what it returns."""
+    from ksw2_tpu.batch import scheduler
+    from ksw2_tpu.ops import batch_xla
 
     rng = np.random.default_rng(7)
     jobs = []
     for _ in range(12):
-        tlen = int(rng.integers(150, 600))
+        tlen = int(rng.integers(20, 600))
         t, q = refcmp.random_pair(rng, tlen, divergence=0.15, indel=0.05)
         jobs.append(AlignJob(encode_dna(q), encode_dna(t)))
     mat = simple_mat(5, 2, 4)
-    calls = []
-    orig = ws.strips_prep
+    seen, ran = [], []
+    orig = scheduler.select_forward
 
-    def spy(*a, **k):
-        calls.append(len(a[0]))
-        return orig(*a, **k)
+    def fwd(*a):
+        ran.append(a[0])
+        return batch_xla.forward(*a)
 
-    ws.strips_prep = spy
+    def spy():
+        seen.append(1)
+        assert orig() is batch_xla.forward
+        return fwd
+
+    scheduler.select_forward = spy
     try:
         align_batch_scores(jobs, 5, mat, 4, 2, zdrop=100,
                            flag=Flag.SCORE_ONLY)
     finally:
-        ws.strips_prep = orig
-    assert calls, "eligible buckets no longer route to the strips engine"
+        scheduler.select_forward = orig
+    buckets = {scheduler.bucket_key(len(j.query), len(j.target))
+               for j in jobs}
+    assert len(seen) == len(buckets) and len(ran) == len(buckets)
+
+
+def test_launches_split_by_memory_budget(monkeypatch):
+    """A bucket larger than the memory budget runs as several launches
+    with the same results."""
+    from ksw2_tpu.batch import scheduler
+
+    rng = np.random.default_rng(17)
+    mat = simple_mat(5, 2, 4)
+    jobs = []
+    for _ in range(9):
+        t, q = refcmp.random_pair(rng, 90, divergence=0.2, indel=0.08)
+        jobs.append(AlignJob(encode_dna(q), encode_dna(t)))
+    whole = scheduler.align_batch(jobs, 5, mat, 4, 2, zdrop=60)
+    spec = scheduler.BatchSpec(Lq=128, Lt=128, two=False, flag=0, nc=64)
+    monkeypatch.setattr(scheduler, "_memory_budget",
+                        lambda: 2 * scheduler._pair_bytes(spec))
+    h = scheduler.align_batch_async(jobs, 5, mat, 4, 2, zdrop=60)
+    assert len(h._launches) >= 3
+    assert [e.tsv_fields() for e in h.result()] == \
+        [e.tsv_fields() for e in whole]
 
 
 def test_async_submit_collect_overlap():

@@ -7,7 +7,8 @@ import pytest
 
 from ksw2_tpu import cli
 
-TDIR = "/root/reference/test"
+TDIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 GOLDEN_T1Q1_EXTZ2 = """t1\tq1\t-2\t4\t1\t1\t2M1D
 t2\tq2\t-12\t2\t0\t0\t2D7M2D4M4D
@@ -39,19 +40,16 @@ def run_cli(argv):
     return buf.getvalue()
 
 
-@pytest.mark.skipif(not os.path.exists(TDIR), reason="reference test data absent")
 def test_extz2_sse_t1q1():
     out = run_cli(["-t", "extz2_sse", f"{TDIR}/t1.fa", f"{TDIR}/q1.fa"])
     assert out == GOLDEN_T1Q1_EXTZ2
 
 
-@pytest.mark.skipif(not os.path.exists(TDIR), reason="reference test data absent")
 def test_extd2_sse_t1q1_defaults():
     out = run_cli(["-t", "extd2_sse", f"{TDIR}/t1.fa", f"{TDIR}/q1.fa"])
     assert out == GOLDEN_T1Q1_EXTD2
 
 
-@pytest.mark.skipif(not os.path.exists(TDIR), reason="reference test data absent")
 def test_banded_regression_from_t5_header():
     # the command recorded in test/t1.fa's t5 header (a past upstream bug)
     out = run_cli(["-t", "extz2_sse", "-A1", "-B9", "-O16", "-E1", "-w10",
@@ -78,33 +76,37 @@ def test_all_vs_all_mode(tmp_path):
     assert lines[0].startswith("a\tx\t8")
 
 
-def test_cli_tpu_backend_matches_golden(tmp_path):
-    """The tpu backend (interpret mode on CPU) prints the same TSV."""
+def test_cli_device_backend_matches_golden():
+    """The device backend (the XLA engine under JAX_PLATFORMS=cpu) prints
+    the same TSV as the spec backend, in a fresh process."""
     import subprocess
-    import sys
-    out = subprocess.run(
-        [sys.executable, "-m", "ksw2_tpu.cli", "--backend", "tpu",
-         "-t", "extz2_sse", "/root/reference/test/t1.fa",
-         "/root/reference/test/q1.fa"],
-        capture_output=True, text=True, check=True,
-        cwd="/root/repo").stdout
-    ref = subprocess.run(
-        [sys.executable, "-m", "ksw2_tpu.cli", "-t", "extz2_sse",
-         "/root/reference/test/t1.fa", "/root/reference/test/q1.fa"],
-        capture_output=True, text=True, check=True,
-        cwd="/root/repo").stdout
-    assert out == ref and out.strip()
+
+    def run(*extra):
+        return subprocess.run(
+            [sys.executable, "-m", "ksw2_tpu.cli", *extra, "-t", "extz2_sse",
+             f"{TDIR}/t1.fa", f"{TDIR}/q1.fa"],
+            capture_output=True, text=True, check=True, cwd=REPO,
+            env=dict(os.environ, JAX_PLATFORMS="cpu")).stdout
+
+    out = run("--backend", "device")
+    assert out == run("--backend", "spec") == GOLDEN_T1Q1_EXTZ2
 
 
 @pytest.mark.parametrize("algo,extra", [
-    ("gg2_sse", ["-w", "30"]),
-    ("extf2_sse", ["-z", "40"]),
-    ("exts2_sse", ["-z", "100"]),
+    ("extz2_sse", ["-r", "-z", "20"]),
+    ("extd2_sse", ["-s", "-w", "5"]),
+    ("test", []),
 ])
-def test_cli_batch_backend_other_algos(algo, extra):
-    """--backend batch output is byte-identical to --backend spec for the
-    non-extension algos too (gg2/extf/exts)."""
+def test_cli_device_backend_matches_spec(algo, extra):
+    """--backend device output is byte-identical to --backend spec."""
     base = ["-t", algo] + extra + [f"{TDIR}/t1.fa", f"{TDIR}/q1.fa"]
     want = run_cli(["--backend", "spec"] + base)
-    got = run_cli(["--backend", "batch"] + base)
+    got = run_cli(["--backend", "device"] + base)
     assert got == want
+
+
+def test_cli_device_backend_refuses_spec_only_algos(capsys):
+    """Algorithms without a device engine run under --backend spec only."""
+    rc = cli.main(["--backend", "device", "-t", "gg2_sse", "ACGT", "ACGT"])
+    assert rc == 1
+    assert "--backend spec" in capsys.readouterr().err

@@ -4,8 +4,9 @@ Complements the fixed golden files in tests/test_cli.py: random sequence
 pairs (with N runs) and random flag combinations go through BOTH CLIs as
 literal-sequence arguments and the TSV output must match byte-for-byte
 (after the reference's NUL-for-N-op quirk is normalized).  Runs the spec
-backend in subprocesses (the suite is CPU-only by design); the TPU
-backend's parity is covered by tests/tpu_validate.py and bench.py.
+backend in subprocesses; the device backend's parity is covered by
+tests/test_golden_device.py, tests/test_differential.py and
+chip_smoke.py.
 """
 import os
 import subprocess
@@ -61,7 +62,7 @@ def test_cli_random_flag_fuzz():
                      "-E", f"{int(rng.integers(2, 5))},1"]
         ref = _run([REF_BIN] + args + [t, q])
         # spec backend: deterministic, validated against the binary; the
-        # CLI defaults to tpu when a chip is visible, so pin it here
+        # CLI defaults to the device backend on a GPU, so pin it here
         mine = subprocess.run(
             [sys.executable, "-m", "ksw2_tpu.cli", "--backend", "spec"]
             + args + [t, q],

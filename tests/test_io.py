@@ -29,7 +29,12 @@ def test_gzip(tmp_path):
 
 
 def test_reference_data():
-    recs = list(read_fastx("/root/reference/test/t1.fa"))
+    """The reference CLI's test pairs, kept in tests/data."""
+    import os
+
+    data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
+    recs = list(read_fastx(os.path.join(data, "t1.fa")))
     assert len(recs) == 5 and recs[0].name == "t1"
-    recs = list(read_fastx("/root/reference/test/q2.fa.gz"))
-    assert len(recs[0].seq) == 50000
+    assert [len(r.seq) for r in recs] == [3, 19, 72, 15, 34]
+    qrecs = list(read_fastx(os.path.join(data, "q1.fa")))
+    assert [r.name for r in qrecs] == ["q1", "q2", "q3", "q4", "q5"]

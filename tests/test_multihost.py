@@ -68,18 +68,17 @@ def test_two_process_distributed():
 
     # cross-check against the single-process engine
     from ksw2_tpu.core.flags import Flag
-    from ksw2_tpu.ops.batch_xla import BatchSpec, extz_batch_scores
-    import jax.numpy as jnp
+    from ksw2_tpu.core.matrix import simple_mat
+    from ksw2_tpu.ops.batch_xla import BatchSpec, ext_batch, make_params
 
     rng = np.random.default_rng(0)
     B, L = 16, 64
-    Q = rng.integers(0, 4, size=(B, L)).astype(np.int32)
+    Q = rng.integers(0, 4, size=(B, L)).astype(np.int8)
     T = np.where(rng.random((B, L)) < 0.15,
-                 rng.integers(0, 4, size=(B, L)), Q).astype(np.int32)
-    spec = BatchSpec(Lq=L, Lt=L, m=5, sc_mch=2, sc_mis=-4, sc_N=-2,
-                     q=4, e=2, zdrop=100, flag=int(Flag.SCORE_ONLY))
-    out = extz_batch_scores(spec, jnp.asarray(Q), jnp.asarray(T),
-                            jnp.full((B,), L, jnp.int32),
-                            jnp.full((B,), L, jnp.int32),
-                            jnp.full((B,), L, jnp.int32))
-    assert sums[0] == int(np.asarray(out["score"]).sum()), (sums, out)
+                 rng.integers(0, 4, size=(B, L)), Q).astype(np.int8)
+    spec = BatchSpec(Lq=L, Lt=L, two=False, flag=int(Flag.SCORE_ONLY), nc=0)
+    mat = simple_mat(5, 2, 4)
+    full = np.full((B,), L, np.int32)
+    rec, _ = ext_batch(spec, Q, T, full, full, full, mat,
+                       make_params(5, mat, 4, 2, zdrop=100))
+    assert sums[0] == int(np.asarray(rec)[:, 7].sum()), (sums, rec)

@@ -1,17 +1,22 @@
-"""Multi-chip (8 virtual CPU devices) sharded batch == single device."""
+"""Multi-device (8 virtual CPU devices) sharded batches == one device."""
 import numpy as np
+import pytest
 
 import __graft_entry__ as graft
-from ksw2_tpu.ops.batch_xla import extz_batch_scores
-from ksw2_tpu.parallel.mesh import make_mesh, sharded_extz_scores
+import refcmp
+from ksw2_tpu.batch.scheduler import AlignJob, align_batch, launch_program
+from ksw2_tpu.core.flags import Flag
+from ksw2_tpu.core.matrix import encode_dna, simple_mat
+from ksw2_tpu.ops.batch_xla import ext_batch
+from ksw2_tpu.parallel.mesh import make_mesh
 
 
 def test_entry_compiles_and_runs():
     import jax
 
     fn, args = graft.entry()
-    out = jax.jit(fn)(*args)
-    assert np.asarray(out["score"]).shape == (args[0].shape[0],)
+    rec, p = jax.jit(fn)(*args)
+    assert np.asarray(rec).shape == (args[0].shape[0], 9) and p is None
 
 
 def test_dryrun_multichip():
@@ -21,307 +26,40 @@ def test_dryrun_multichip():
 def test_sharded_equals_unsharded():
     args = graft._example_batch(B=16, Lq=128, Lt=128, seed=3)
     spec = graft._spec(Lq=128, Lt=128)
-    o1 = sharded_extz_scores(make_mesh(8), spec, *args)
-    o2 = extz_batch_scores(spec, *args)
-    for k in o2:
-        assert np.array_equal(np.asarray(o1[k]), np.asarray(o2[k])), k
+    o1, = launch_program(spec, make_mesh(8))(*args, *graft._costs())
+    o2, _ = ext_batch(spec, *args, *graft._costs())
+    assert np.array_equal(np.asarray(o1), np.asarray(o2))
 
 
-def test_sharded_pallas_engine_matches_spec():
-    import numpy as np
-    import jax.numpy as jnp
-    import refcmp
-    from ksw2_tpu.core.flags import Flag
-    from ksw2_tpu.core.matrix import encode_dna, simple_mat
-    from ksw2_tpu.parallel.mesh import make_mesh, sharded_extz_scores_pallas
-    from ksw2_tpu.spec import diagdiff
-
-    rng = np.random.default_rng(3)
-    B = 16
-    pairs = []
-    for _ in range(B):
-        tlen = int(rng.integers(8, 120))
-        t, q = refcmp.random_pair(rng, tlen, divergence=0.25, indel=0.1)
-        pairs.append((encode_dna(q), encode_dna(t)))
-    Lq = max(len(q) for q, t in pairs)
-    Q = np.zeros((B, Lq), np.int8)
-    T = np.zeros((B, 128), np.int8)
-    qlen = np.zeros(B, np.int32)
-    tlen = np.zeros(B, np.int32)
-    for i, (q, t) in enumerate(pairs):
-        Q[i, : len(q)] = q
-        T[i, : len(t)] = t
-        qlen[i], tlen[i] = len(q), len(t)
-    w = np.maximum(qlen, tlen)
-    mat = simple_mat(5, 2, 4)
-    mesh = make_mesh(8)
-    out = sharded_extz_scores_pallas(
-        mesh, jnp.asarray(Q), jnp.asarray(T), jnp.asarray(qlen),
-        jnp.asarray(tlen), jnp.asarray(w), 5, mat, 4, 2, zdrop=50,
-        interpret=True)
-    for i, (q, t) in enumerate(pairs):
-        ez, _ = diagdiff.extz2(q, t, 5, mat, 4, 2, w=-1, zdrop=50,
-                               flag=Flag.SCORE_ONLY)
-        assert int(out["score"][i]) == ez.score, i
-        assert int(out["max"][i]) == ez.max, i
-
-
-def test_sharded_extd_engine_matches_spec():
-    import jax.numpy as jnp
-    import refcmp
-    from ksw2_tpu.core.flags import Flag
-    from ksw2_tpu.core.matrix import encode_dna, simple_mat
-    from ksw2_tpu.parallel.mesh import make_mesh, sharded_extd_scores_pallas
-    from ksw2_tpu.spec import diagdiff
-
-    rng = np.random.default_rng(5)
-    B = 64
-    pairs = []
-    for _ in range(B):
-        tlen = int(rng.integers(8, 120))
-        t, q = refcmp.random_pair(rng, tlen, divergence=0.25, indel=0.1)
-        pairs.append((encode_dna(q), encode_dna(t)))
-    Lq = max(len(q) for q, t in pairs)
-    Q = np.zeros((B, Lq), np.int8)
-    T = np.zeros((B, 128), np.int8)
-    qlen = np.zeros(B, np.int32)
-    tlen = np.zeros(B, np.int32)
-    for i, (q, t) in enumerate(pairs):
-        Q[i, : len(q)] = q
-        T[i, : len(t)] = t
-        qlen[i], tlen[i] = len(q), len(t)
-    w = np.maximum(qlen, tlen)
-    mat = simple_mat(5, 2, 4)
-    out = sharded_extd_scores_pallas(
-        make_mesh(8), jnp.asarray(Q), jnp.asarray(T), jnp.asarray(qlen),
-        jnp.asarray(tlen), jnp.asarray(w), 5, mat, 4, 2, 13, 1, zdrop=50,
-        interpret=True)
-    for i, (q, t) in enumerate(pairs[:16]):
-        ez, _ = diagdiff.extd2(q, t, 5, mat, 4, 2, 13, 1, w=-1, zdrop=50,
-                               flag=Flag.SCORE_ONLY)
-        assert int(out["score"][i]) == ez.score, i
-        assert int(out["max"][i]) == ez.max, i
-
-
-def test_sharded_band_engine_matches_spec():
-    import jax.numpy as jnp
-    import refcmp
-    from ksw2_tpu.core.flags import Flag
-    from ksw2_tpu.core.matrix import encode_dna, simple_mat
-    from ksw2_tpu.parallel.mesh import make_mesh, sharded_band_scores
-    from ksw2_tpu.spec import diagdiff
-
-    rng = np.random.default_rng(7)
-    B = 64
-    pairs = []
-    for _ in range(B):
-        tlen = int(rng.integers(60, 140))
-        t, q = refcmp.random_pair(rng, tlen, divergence=0.15, indel=0.08)
-        pairs.append((encode_dna(q), encode_dna(t)))
-    Lq = max(len(q) for q, t in pairs)
-    Lt = max(len(t) for q, t in pairs)
-    Q = np.zeros((B, Lq), np.int8)
-    T = np.zeros((B, Lt), np.int8)
-    qlen = np.zeros(B, np.int32)
-    tlen = np.zeros(B, np.int32)
-    for i, (q, t) in enumerate(pairs):
-        Q[i, : len(q)] = q
-        T[i, : len(t)] = t
-        qlen[i], tlen[i] = len(q), len(t)
-    w = rng.integers(10, 60, B).astype(np.int32)
-    mat = simple_mat(5, 2, 4)
-    out = sharded_band_scores(
-        make_mesh(8), jnp.asarray(Q), jnp.asarray(T), jnp.asarray(qlen),
-        jnp.asarray(tlen), jnp.asarray(w), 5, mat, 4, 2, zdrop=60,
-        interpret=True)
-    for i, (q, t) in enumerate(pairs[:16]):
-        ez, _ = diagdiff.extz2(q, t, 5, mat, 4, 2, w=int(w[i]), zdrop=60,
-                               flag=Flag.SCORE_ONLY)
-        assert int(out["score"][i]) == ez.score, i
-        assert int(out["max"][i]) == ez.max, i
-
-
-def test_sharded_exts_engine_matches_spec():
-    import jax.numpy as jnp
-    import refcmp
-    from ksw2_tpu.core.flags import Flag
-    from ksw2_tpu.core.matrix import encode_dna, simple_mat
-    from ksw2_tpu.parallel.mesh import make_mesh, sharded_exts_scores_pallas
-    from ksw2_tpu.spec import diagdiff
-
-    rng = np.random.default_rng(11)
-    B = 64
-    pairs = []
-    for _ in range(B):
-        tlen = int(rng.integers(8, 120))
-        t, q = refcmp.random_pair(rng, tlen, divergence=0.25, indel=0.1)
-        pairs.append((encode_dna(q), encode_dna(t)))
-    Lq = max(len(q) for q, t in pairs)
-    Q = np.zeros((B, Lq), np.int8)
-    T = np.zeros((B, 128), np.int8)
-    qlen = np.zeros(B, np.int32)
-    tlen = np.zeros(B, np.int32)
-    for i, (q, t) in enumerate(pairs):
-        Q[i, : len(q)] = q
-        T[i, : len(t)] = t
-        qlen[i], tlen[i] = len(q), len(t)
-    mat = simple_mat(5, 1, 2)
-    out = sharded_exts_scores_pallas(
-        make_mesh(8), Q, T, qlen, tlen, 5, mat, 2, 1, 32, 9, zdrop=50,
-        flag=Flag.SCORE_ONLY | Flag.SPLICE_FOR, interpret=True)
-    for i, (q, t) in enumerate(pairs[:16]):
-        ez, _ = diagdiff.exts2(q, t, 5, mat, 2, 1, 32, 9, zdrop=50,
-                               flag=Flag.SCORE_ONLY | Flag.SPLICE_FOR)
-        assert int(out["score"][i]) == ez.score, i
-        assert int(out["max"][i]) == ez.max, i
-        assert int(out["mqe"][i]) == ez.mqe, i
-
-
-def test_sharded_extf_engine_matches_spec():
-    import refcmp
-    from ksw2_tpu.core.flags import Flag
-    from ksw2_tpu.core.matrix import encode_dna
-    from ksw2_tpu.parallel.mesh import make_mesh, sharded_extf_scores_pallas
-    from ksw2_tpu.spec import diagdiff
-
-    rng = np.random.default_rng(13)
-    B = 64
-    pairs = []
-    for _ in range(B):
-        tlen = int(rng.integers(8, 120))
-        t, q = refcmp.random_pair(rng, tlen, divergence=0.25, indel=0.1)
-        pairs.append((encode_dna(q), encode_dna(t)))
-    Lq = max(len(q) for q, t in pairs)
-    Q = np.zeros((B, Lq), np.int8)
-    T = np.zeros((B, 128), np.int8)
-    qlen = np.zeros(B, np.int32)
-    tlen = np.zeros(B, np.int32)
-    for i, (q, t) in enumerate(pairs):
-        Q[i, : len(q)] = q
-        T[i, : len(t)] = t
-        qlen[i], tlen[i] = len(q), len(t)
-    w = np.maximum(qlen, tlen)
-    out = sharded_extf_scores_pallas(
-        make_mesh(8), Q, T, qlen, tlen, w, 2, 4, 2, xdrop=40,
-        interpret=True)
-    for i, (q, t) in enumerate(pairs[:16]):
-        ez = diagdiff.extf2(q, t, 2, 4, 2, xdrop=40)
-        assert int(out["score"][i]) == ez.score, i
-        assert int(out["max"][i]) == ez.max, i
-
-
-def test_sharded_cigar_batch_matches_local():
-    """sharded_extz_align == local extz_batch_align, CIGARs included."""
-    import refcmp
-    from ksw2_tpu.core.flags import Flag
-    from ksw2_tpu.core.matrix import encode_dna, simple_mat
-    from ksw2_tpu.ops.batch_pallas import extz_batch_align
-    from ksw2_tpu.parallel.mesh import make_mesh, sharded_extz_align
-
-    rng = np.random.default_rng(31)
-    B = 21                                   # odd: forces mesh padding
-    pairs = []
-    for _ in range(B):
-        tlen = int(rng.integers(30, 120))
-        t, q = refcmp.random_pair(rng, tlen, divergence=0.2, indel=0.1)
-        pairs.append((encode_dna(q), encode_dna(t)))
-    Lq = max(len(q) for q, t in pairs)
-    Q = np.zeros((B, Lq), np.int32)
-    T = np.zeros((B, 128), np.int32)
-    qlen = np.zeros(B, np.int32)
-    tlen = np.zeros(B, np.int32)
-    for i, (q, t) in enumerate(pairs):
-        Q[i, : len(q)] = q
-        T[i, : len(t)] = t
-        qlen[i], tlen[i] = len(q), len(t)
-    mat = simple_mat(5, 2, 4)
-    for flag in (Flag.NONE, Flag.EXTZ_ONLY | Flag.EQX):
-        sh = sharded_extz_align(make_mesh(8), Q, T, qlen, tlen, 5, mat,
-                                4, 2, zdrop=100, end_bonus=5, flag=flag,
-                                interpret=True)
-        lo = extz_batch_align(Q, T, qlen, tlen, 5, mat, 4, 2,
-                              zdrop=100, end_bonus=5, flag=flag,
-                              interpret=True)
-        assert len(sh) == B
-        for i, (a, b) in enumerate(zip(sh, lo)):
-            assert a.tsv_fields() == b.tsv_fields(), (int(flag), i)
-            assert a.cigar == b.cigar, (int(flag), i)
-
-
-def test_sharded_run_fn_picks_strips_like_local():
-    """Engine-selection unification (round-3 judge item 7): the mesh
-    run_fn must route effectively-unbanded score-only buckets through
-    the SAME strips engine as the local path, with identical records."""
-    import refcmp
-    from ksw2_tpu.batch.scheduler import AlignJob, align_batch_scores
-    from ksw2_tpu.core.flags import Flag
-    from ksw2_tpu.core.matrix import encode_dna, simple_mat
-    from ksw2_tpu.parallel import mesh as pm
-
-    mesh = pm.make_mesh(8)
-    rng = np.random.default_rng(77)
+def _jobs(seed, n, lo, hi, w=-1):
+    rng = np.random.default_rng(seed)
     jobs = []
-    for _ in range(12):
-        tlen = int(rng.integers(100, 700))
-        t, q = refcmp.random_pair(rng, tlen, divergence=0.2, indel=0.1)
-        jobs.append(AlignJob(encode_dna(q), encode_dna(t)))
-    mat = simple_mat(5, 2, -4)
-
-    calls = []
-    orig = pm.sharded_strips_records
-
-    def spy(*a, **k):
-        calls.append(True)
-        return orig(*a, **k)
-
-    pm.sharded_strips_records = spy
-    try:
-        sharded = align_batch_scores(jobs, 5, mat, 4, 2, zdrop=100,
-                                     flag=Flag.SCORE_ONLY,
-                                     run_fn=pm.make_sharded_run_fn(mesh))
-    finally:
-        pm.sharded_strips_records = orig
-    assert calls, "mesh run_fn must route eligible buckets to strips"
-    local = align_batch_scores(jobs, 5, mat, 4, 2, zdrop=100,
-                               flag=Flag.SCORE_ONLY)
-    assert [e.__dict__ for e in sharded] == [e.__dict__ for e in local]
+    for _ in range(n):
+        tlen = int(rng.integers(lo, hi))
+        t, q = refcmp.random_pair(rng, tlen, divergence=0.25, indel=0.1)
+        jobs.append(AlignJob(encode_dna(q), encode_dna(t), w=w))
+    return jobs
 
 
-def test_sharded_strips_cigar_matches_local():
-    """sharded_strips_cigar (the round-5 fused CIGAR route, multi-chip)
-    == local strips_cigar_batch, one-piece and two-piece."""
-    import refcmp
-    from ksw2_tpu.core.flags import Flag
-    from ksw2_tpu.core.matrix import encode_dna, simple_mat
-    from ksw2_tpu.ops.strips_walker import strips_cigar_batch
-    from ksw2_tpu.parallel.mesh import make_mesh, sharded_strips_cigar
-
-    rng = np.random.default_rng(53)
-    B = 11                                   # odd: forces mesh padding
-    pairs = []
-    for _ in range(B):
-        tl_ = int(rng.integers(120, 300))
-        t, q = refcmp.random_pair(rng, tl_, divergence=0.2, indel=0.1)
-        pairs.append((encode_dna(q), encode_dna(t)))
-    Lq = max(len(q) for q, t in pairs)
-    Lt = max(len(t) for q, t in pairs)
-    Q = np.zeros((B, Lq), np.int32)
-    T = np.zeros((B, Lt), np.int32)
-    qlen = np.zeros(B, np.int32)
-    tlen = np.zeros(B, np.int32)
-    for i, (qv, tv) in enumerate(pairs):
-        Q[i, :len(qv)] = qv
-        T[i, :len(tv)] = tv
-        qlen[i], tlen[i] = len(qv), len(tv)
+@pytest.mark.parametrize("two,flag,zdrop,w", [
+    (False, Flag.SCORE_ONLY, 50, -1),
+    (True, Flag.SCORE_ONLY, 50, -1),
+    (False, Flag.SCORE_ONLY, 60, 30),
+    (False, Flag.SCORE_ONLY | Flag.APPROX_MAX | Flag.APPROX_DROP, 40, -1),
+    (False, Flag.NONE, 100, -1),
+    (False, Flag.EXTZ_ONLY | Flag.EQX, 100, -1),
+    (True, Flag.NONE, 100, 40),
+    (True, Flag.RIGHT | Flag.EQX, 100, -1),
+])
+def test_sharded_scheduler_matches_local(two, flag, zdrop, w):
+    """Every launch sharded over the mesh gives the one-device results,
+    with an odd job count that forces padding."""
+    jobs = _jobs(int(flag) + 2 * two + 7, 21, 70, 120, w=w)
     mat = simple_mat(5, 2, 4)
-    for two in (False, True):
-        sh = sharded_strips_cigar(make_mesh(8), Q, T, qlen, tlen, 5,
-                                  mat, 4, 2, zdrop=100, flag=Flag.NONE,
-                                  two=two, q2=13, e2=1, interpret=True)
-        lo = strips_cigar_batch(Q, T, qlen, tlen, 5, mat, 4, 2,
-                                zdrop=100, flag=Flag.NONE,
-                                interpret=True, two=two, q2=13, e2=1)
-        assert len(sh) == B
-        for i, (a, b) in enumerate(zip(sh, lo)):
-            assert a.tsv_fields() == b.tsv_fields(), (two, i)
-            assert a.cigar == b.cigar, (two, i)
+    kw = dict(q2=13, e2=1) if two else {}
+    sh = align_batch(jobs, 5, mat, 4, 2, zdrop=zdrop, end_bonus=5,
+                     flag=flag, mesh=make_mesh(8), **kw)
+    lo = align_batch(jobs, 5, mat, 4, 2, zdrop=zdrop, end_bonus=5,
+                     flag=flag, **kw)
+    assert len(sh) == len(jobs)
+    assert sh == lo

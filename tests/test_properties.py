@@ -1,14 +1,15 @@
-"""Property tests over the device pipeline (SURVEY.md section 4).
+"""Property tests over the device path (SURVEY.md section 4).
 
-For global-to-corner runs: the CIGAR must consume exactly (tlen, qlen)
-bases and re-scoring it must reproduce the reported score. Run against the
-device kernels (interpret mode) so the whole pipeline — forward sweep,
-direction planes, on-device traceback, RLE — is covered, not just the spec.
+For global-to-corner runs the CIGAR must consume exactly (tlen, qlen)
+bases and re-scoring it must reproduce the reported score.  Run through
+the scheduler so the whole path is covered: batched forward, direction
+rows, device traceback, host RLE.
 """
 import numpy as np
 import pytest
 
 import refcmp
+from ksw2_tpu.batch.scheduler import AlignJob, align_batch
 from ksw2_tpu.core import cigar as C
 from ksw2_tpu.core.flags import Flag
 from ksw2_tpu.core.matrix import encode_dna, simple_mat
@@ -19,59 +20,40 @@ def _cases(seed, n):
     out = []
     for _ in range(n):
         tlen = int(rng.integers(10, 160))
-        t, q = rng_pair(rng, tlen)
-        out.append((encode_dna(q), encode_dna(t)))
+        t, q = refcmp.random_pair(rng, tlen,
+                                  divergence=float(rng.uniform(0, 0.35)),
+                                  indel=float(rng.uniform(0, 0.15)))
+        out.append(AlignJob(encode_dna(q), encode_dna(t)))
     return out
-
-
-def rng_pair(rng, tlen):
-    return refcmp.random_pair(rng, tlen, divergence=float(rng.uniform(0, 0.35)),
-                              indel=float(rng.uniform(0, 0.15)))
 
 
 @pytest.mark.parametrize("seed", [1, 2])
 def test_extz_cigar_consumes_and_rescoring_matches(seed):
     mat = simple_mat(5, 2, 4)
-    from ksw2_tpu.ops.extz import extz2_device
-    for qs, ts in _cases(seed, 5):
-        ez, _ = extz2_device(qs, ts, 5, mat, 4, 2, interpret=True)
-        tc, qc = C.consumed(ez.cigar)
-        assert (tc, qc) == (len(ts), len(qs))
+    jobs = _cases(seed, 6)
+    for job, ez in zip(jobs, align_batch(jobs, 5, mat, 4, 2)):
+        qs, ts = job.query, job.target
+        assert C.consumed(ez.cigar) == (len(ts), len(qs))
         assert C.score_of(ez.cigar, qs, ts, mat, 5, 4, 2) == ez.score
 
 
-@pytest.mark.parametrize("seed", [3])
+@pytest.mark.parametrize("seed", [3, 4])
 def test_extd_cigar_consumes_and_rescoring_matches(seed):
     mat = simple_mat(5, 2, 4)
-    from ksw2_tpu.ops.extd import extd2_device
-    for qs, ts in _cases(seed, 4):
-        ez, _ = extd2_device(qs, ts, 5, mat, 4, 2, 13, 1, interpret=True)
-        tc, qc = C.consumed(ez.cigar)
-        assert (tc, qc) == (len(ts), len(qs))
+    jobs = _cases(seed, 5)
+    for job, ez in zip(jobs, align_batch(jobs, 5, mat, 4, 2, 13, 1)):
+        qs, ts = job.query, job.target
+        assert C.consumed(ez.cigar) == (len(ts), len(qs))
         assert C.score_of(ez.cigar, qs, ts, mat, 5, 4, 2,
                           gapo2=13, gape2=1) == ez.score
 
 
-def test_batch_align_cigar_consumes():
+def test_rev_cigar_is_reversed():
+    """REV_CIGAR emits the same runs in the opposite order."""
     mat = simple_mat(5, 2, 4)
-    from ksw2_tpu.ops.batch_pallas import extz_batch_align
-    rng = np.random.default_rng(5)
-    B = 8
-    pairs = []
-    for _ in range(B):
-        tlen = int(rng.integers(10, 120))
-        t, q = rng_pair(rng, tlen)
-        pairs.append((encode_dna(q), encode_dna(t)))
-    Lq = max(len(q) for q, t in pairs)
-    Q = np.zeros((B, Lq), np.int32)
-    T = np.zeros((B, 128), np.int32)
-    qlen = np.array([len(q) for q, t in pairs], np.int32)
-    tlen = np.array([len(t) for q, t in pairs], np.int32)
-    for i, (q, t) in enumerate(pairs):
-        Q[i, : len(q)] = q
-        T[i, : len(t)] = t
-    ezs = extz_batch_align(Q, T, qlen, tlen, 5, mat, 4, 2, interpret=True)
-    for i, (q, t) in enumerate(pairs):
-        tc, qc = C.consumed(ezs[i].cigar)
-        assert (tc, qc) == (len(t), len(q)), i
-        assert C.score_of(ezs[i].cigar, q, t, mat, 5, 4, 2) == ezs[i].score, i
+    jobs = _cases(5, 6)
+    fwd = align_batch(jobs, 5, mat, 4, 2, zdrop=50)
+    rev = align_batch(jobs, 5, mat, 4, 2, zdrop=50, flag=Flag.REV_CIGAR)
+    for a, b in zip(fwd, rev):
+        assert a.cigar == b.cigar[::-1]
+        assert a.score == b.score

@@ -1,98 +1,78 @@
-"""Mesh-sharded scheduler path + scaling-efficiency measurement.
+"""Mesh-width invariance and compile reuse of the scheduler path.
 
-Runs on the suite's virtual 8-device CPU mesh (conftest).  Parity is the
-hard assert; the efficiency number is printed, not asserted (virtual CPU
-devices share host cores, so speedup is a weak lower bound of real ICI
-scaling — BASELINE.md targets >= 85% to 2 hosts on hardware).
+Runs on the suite's virtual 8-device CPU mesh (conftest).  The same batch
+over 1, 2, 4 and 8 devices must give identical results: pairs are
+independent, so the shard count may only change where they run.  A repeated
+call, with a freshly built mesh, must reuse every compiled launch program:
+retracing or recompiling per call once made each sharded call about 45x
+slower.  (Speed across devices is a chip measurement, not a CPU one.)
 """
 import numpy as np
+import pytest
 
+from ksw2_tpu.batch import scheduler
+from ksw2_tpu.batch.scheduler import AlignJob, align_batch, align_batch_scores
 from ksw2_tpu.core.flags import Flag
 from ksw2_tpu.core.matrix import simple_mat
+from ksw2_tpu.parallel.mesh import make_mesh
 
 
-def test_sharded_scheduler_run_fn():
-    """align_batch_scores with the mesh run_fn == local results."""
-    from ksw2_tpu.batch.scheduler import AlignJob, align_batch_scores
-    from ksw2_tpu.parallel.mesh import make_mesh, make_sharded_run_fn
-
+def _jobs():
     rng = np.random.default_rng(5)
-    mat = simple_mat(5, 2, -4)
     jobs = []
     for _ in range(37):                      # odd count forces padding
         L = int(rng.integers(40, 200))
-        q = rng.integers(0, 4, size=L).astype(np.int32)
+        q = rng.integers(0, 4, size=L).astype(np.int8)
         t = np.where(rng.random(L) < 0.15,
-                     rng.integers(0, 4, size=L), q).astype(np.int32)
+                     rng.integers(0, 4, size=L), q).astype(np.int8)
         jobs.append(AlignJob(query=q, target=t))
+    return jobs
 
-    mesh = make_mesh(8)
-    sharded = align_batch_scores(jobs, 5, mat, 4, 2, zdrop=100,
-                                 flag=Flag.SCORE_ONLY,
-                                 run_fn=make_sharded_run_fn(mesh))
+
+@pytest.mark.parametrize("n_devices", [1, 2, 4, 8])
+def test_mesh_width_invariance(n_devices):
+    jobs = _jobs()
+    mat = simple_mat(5, 2, -4)
     local = align_batch_scores(jobs, 5, mat, 4, 2, zdrop=100,
                                flag=Flag.SCORE_ONLY)
-    for i, (a, b) in enumerate(zip(sharded, local)):
-        for f in ("max", "max_t", "max_q", "mqe", "mqe_t", "mte", "mte_q",
-                  "score", "zdropped"):
-            assert getattr(a, f) == getattr(b, f), (i, f)
+    sharded = align_batch_scores(jobs, 5, mat, 4, 2, zdrop=100,
+                                 flag=Flag.SCORE_ONLY,
+                                 mesh=make_mesh(n_devices))
+    assert sharded == local
 
 
-def test_scaling_efficiency_runs():
-    from ksw2_tpu.parallel.mesh import scaling_efficiency
-
-    t1, tn, eff = scaling_efficiency(8, B_per_dev=16, L=64, reps=2)
-    assert t1 > 0 and tn > 0 and eff > 0
-    print(f"virtual-8 scaling efficiency: {eff:.2f} "
-          f"(t1={t1*1e3:.1f}ms, t8={tn*1e3:.1f}ms)")
-    # on shared host cores n shards cannot be faster, but a large wall
-    # REGRESSION at n > 1 means fixed per-call overhead.  The bug this
-    # guards (per-call shard_map retrace+recompile, fixed by the cached
-    # wrappers in parallel.mesh) was a ~45x blowup (1.9 s/call).  The
-    # retrace fix holds wall_ratio ~1.2-1.9 in dryruns; 2x + slack
-    # tolerates shared-core jitter under a full parallel suite run while
-    # still catching any retrace-class regression
-    assert tn <= t1 * 2.0 + 0.05, (t1, tn)
+def _programs(jobs, mat, flag, mesh):
+    """The jitted launch programs a batch runs (looked up, not built)."""
+    launches, _ = scheduler.plan_launches(
+        jobs, 5, mat, 4, 2, zdrop=100, flag=flag,
+        n_shards=1 if mesh is None else mesh.size)
+    return [scheduler.launch_program(ln.spec, mesh) for ln in launches]
 
 
-def test_scaling_trend_1_2_4_8():
-    """Same-size workload across mesh widths: no per-shard wall blowup."""
-    import time
+TREND = [(None, Flag.SCORE_ONLY), (1, Flag.SCORE_ONLY), (2, Flag.SCORE_ONLY),
+         (4, Flag.SCORE_ONLY), (8, Flag.SCORE_ONLY), (None, Flag.NONE),
+         (8, Flag.NONE)]
 
-    import jax
-    import jax.numpy as jnp
 
-    from ksw2_tpu.ops.batch_xla import BatchSpec
-    from ksw2_tpu.parallel.mesh import make_mesh, sharded_extz_scores
+@pytest.mark.parametrize("n_devices,flag", TREND, ids=[
+    f"{'unsharded' if n is None else f'mesh{n}'}-"
+    f"{'scores' if f & Flag.SCORE_ONLY else 'cigars'}" for n, f in TREND])
+def test_scaling_trend_1_2_4_8(n_devices, flag):
+    """A second call of the same batch, on a newly built mesh of the same
+    width (or none), neither builds nor retraces a launch program."""
+    jobs = _jobs()
+    mat = simple_mat(5, 2, -4)
 
-    B, L = 64, 64
-    rng = np.random.default_rng(3)
-    Q = rng.integers(0, 4, size=(B, L)).astype(np.int32)
-    T = np.where(rng.random((B, L)) < 0.1,
-                 rng.integers(0, 4, size=(B, L)), Q).astype(np.int32)
-    ql = jnp.full((B,), L, jnp.int32)
-    spec = BatchSpec(Lq=L, Lt=L, m=5, sc_mch=2, sc_mis=-4, sc_N=-2,
-                     q=4, e=2, zdrop=200, flag=1)
-    Qd, Td = jnp.asarray(Q), jnp.asarray(T)
+    def mesh():
+        return None if n_devices is None else make_mesh(n_devices)
 
-    walls = {}
-    checks = set()
-    for n in (1, 2, 4, 8):
-        mesh = make_mesh(n)
-        out = sharded_extz_scores(mesh, spec, Qd, Td, ql, ql, ql)
-        checks.add(int(np.asarray(out["max"]).sum()))
-        best = 1e9
-        for _ in range(3):
-            t0 = time.time()
-            out = sharded_extz_scores(mesh, spec, Qd, Td, ql, ql, ql)
-            jax.block_until_ready(out["max"])
-            best = min(best, time.time() - t0)
-        walls[n] = best
-    assert len(checks) == 1, checks              # sharding-invariant
-    t1 = walls[1]
-    for n in (2, 4, 8):
-        # shards share host cores, so no speedup is expected — but fixed
-        # per-shard overhead must stay in the noise (generous bound: the
-        # bug this guards against was a ~45x blowup, and loaded shared
-        # cores jitter 2-3x)
-        assert walls[n] <= t1 * 3.0 + 0.05, walls
+    first = align_batch(jobs, 5, mat, 4, 2, zdrop=100, flag=flag,
+                        mesh=mesh())
+    progs = _programs(jobs, mat, flag, mesh())
+    misses = scheduler._compiled.cache_info().misses
+    traced = [p._cache_size() for p in progs]
+    again = align_batch(jobs, 5, mat, 4, 2, zdrop=100, flag=flag,
+                        mesh=mesh())
+    assert again == first
+    assert scheduler._compiled.cache_info().misses == misses
+    assert [p._cache_size() for p in progs] == traced
